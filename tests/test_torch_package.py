@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "torchft_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchft_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "torchft_tpu")
 
 
 def _port_sources():
@@ -34,7 +34,7 @@ def test_importing_every_module_leaves_jax_out():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 8 else 0)\n" % (FORBIDDEN,)
+        "sys.exit(1 if bad or len(names) < 25 else 0)\n" % (FORBIDDEN,)
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -80,9 +80,10 @@ def test_unported_options_raise():
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert (PACKAGE / "csrc" / "flash_attention.cu").is_file()
+    for source in ("flash_attention.cu", "quantization.cu", "native_pb/pb_wire.h"):
+        assert (PACKAGE / "csrc" / source).is_file()
     text = (REPO / "pyproject.toml").read_text()
-    assert '"torchft_tpu_torch" = ["csrc/*.cu"]' in text
+    assert '"torchft_tpu_torch" = ["csrc/*.cu", "csrc/native_pb/*.h"]' in text
 
 
 def test_kernel_build_without_nvcc_raises_and_leaves_nothing(monkeypatch, tmp_path):
@@ -97,3 +98,16 @@ def test_kernel_build_without_nvcc_raises_and_leaves_nothing(monkeypatch, tmp_pa
         _build.load_library("flash_attention")
     assert "flash_attention" not in _build._loaded
     assert not (tmp_path / "kernels").exists()
+
+
+def test_native_build_without_gxx_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    """The coordination plane needs g++; without it the build raises."""
+    from torchft_tpu_torch import _native
+
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        _native.load()
+    assert _native._lib is None
+    assert not list((tmp_path / "native").glob("*.so"))
