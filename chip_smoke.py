@@ -10,13 +10,17 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit, torch and CUDA versions; an
    sm_90 card is required.
-2. build: each build's time and the kernels' register/spill summary.
+2. build: each build's time and, where this run built it, the kernels'
+   register/spill summary from nvcc.
 3. kernel_checks, kernels: the flash kernels (B3-B5) against their plain
    PyTorch versions on the card, at the train step's shapes (b=4, s=2048,
    8 query heads of 128 over 4 KV heads, bf16), on a ragged partial with
-   permuted positions, on a fully masked hop, and in f32 on a small case;
-   then their times beside the plain version, the card's bound and, as a
-   yardstick the port never calls, scaled_dot_product_attention.
+   permuted positions, on a fully masked hop, on a ragged bf16 head_dim-64
+   forward with permuted positions, and in f32 on a small case; then their
+   times beside the plain version, the card's bound and, as a yardstick the
+   port never calls, scaled_dot_product_attention; and the bf16 forward's
+   registers, local memory (none allowed: no spill) and resident blocks
+   per SM, read from the loaded kernel.
 4. codec_checks, codec: the blockwise codec kernels (B1 quantize, B2
    dequantize) byte for byte against their plain versions, fp8 and int8,
    at the FT-DDP path's bucket shapes (16 MiB of bf16 gradients as f32,
@@ -45,7 +49,8 @@ Phases, each printing one JSON line:
    their step time over the train phase's is printed as such, not as the
    fault-tolerance overhead.
 8. planted_faults: copies of the kernels with known faults (a skipped GQA
-   head, a skipped KV or query tile, a max that drops NaN, ...), built and
+   head, a skipped KV or query tile, a dropped softmax correction, a mask
+   from indices, a max that drops NaN, ...), built and
    checked in parallel; the run fails unless the checks reject every one.
 
 Then the kernels line, the card's nvidia-smi line and, last, the result.
@@ -116,14 +121,25 @@ FT_GROUPS = 2
 FT_TIMEOUT_S = 600
 
 # Known faults for the planted_faults phase: (name, source in csrc/, text
-# in it, its replacement, the check that must reject it). Flash tile 16
-# covers keys or queries 1024-1087, so only the later rows lose a small
-# share of their terms.
+# in it, its replacement, the check that must reject it). Tile 16 of dq
+# and dk/dv covers keys or queries 1024-1087 and tile 8 of the bf16
+# forward keys 1024-1151, so only the later rows lose a small share of
+# their terms.
 PLANTED_FAULTS = (
-    ("fwd drops the P.V of KV tile 16", "flash_attention.cu",
-     "    strip_pv<T, kBlockK, D>(sP + r0 * L::LDP,",
-     "    if (kt != 16) strip_pv<T, kBlockK, D>(sP + r0 * L::LDP,",
+    ("fwd drops the P.V of KV tile 8 (keys 1024-1151)", "flash_attention.cu",
+     "      wgmma_rs_pv<D>(o, a,",
+     "      if (t != 8) wgmma_rs_pv<D>(o, a,",
      "flash_fwd out"),
+    ("fwd drops the correction of its register accumulator O", "flash_attention.cu",
+     "o[4 * j + 2 * i + e] *= corr[i];",
+     "o[4 * j + 2 * i + e] *= 1.f;",
+     "flash_fwd out"),
+    # The train step's positions are the row and column indices, so only the
+    # permuted partial shows it.
+    ("fwd masks by row and column index, not by position", "flash_attention.cu",
+     "x = (in && qp[i] >= kp) ?",
+     "x = (in && q0 + row_in + 8 * i >= k0 + col) ?",
+     "partial out"),
     ("dq drops the dS.K of KV tile 16", "flash_attention.cu",
      "    strip_pv<T, kBlockK, D>(sDS + r0 * L::LDP,",
      "    if (kt != 16) strip_pv<T, kBlockK, D>(sDS + r0 * L::LDP,",
@@ -276,14 +292,47 @@ def phase_build():
               "native_seconds": _native.build_log.get("seconds")}
     for name in ("flash_attention", "quantization"):
         log = _build.build_log.get(name, {})
-        ptxas = log.get("ptxas", "")
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
+        kernels = ptxas_kernels(log.get("ptxas", ""))
         report[name] = {
-            "nvcc_seconds": log.get("seconds"), "kernel_instances": len(regs),
-            "max_registers": max(regs, default=None), "spill_store_bytes": sum(spills),
+            "built": bool(log), "nvcc_seconds": log.get("seconds"),
+            "kernel_instances": len(kernels),
+            "max_registers": max((k["registers"] for k in kernels.values()), default=None),
+            "spill_store_bytes": sum(k["spill_store_bytes"] for k in kernels.values()),
         }
     emit(report)
+
+
+def ptxas_kernels(ptxas: str) -> dict:
+    """Registers and spill bytes per kernel instance (mangled name) from
+    nvcc's -Xptxas -v output."""
+    kernels = {}
+    for block in ptxas.split("Compiling entry function ")[1:]:
+        name = re.match(r"'([^']+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        stores = re.search(r"(\d+) bytes spill stores", block)
+        loads = re.search(r"(\d+) bytes spill loads", block)
+        if name and regs:
+            kernels[name.group(1)] = {
+                "registers": int(regs.group(1)),
+                "spill_store_bytes": int(stores.group(1)) if stores else 0,
+                "spill_load_bytes": int(loads.group(1)) if loads else 0,
+            }
+    return kernels
+
+
+def fwd_resources(head_dim: int, sk: int) -> dict:
+    """The bf16 forward's resident blocks per SM, registers and local-memory
+    bytes per thread at head_dim and a KV length of sk, read from the loaded
+    kernel. Raises if it uses local memory: its accumulators are meant to
+    stay in registers, with no spill."""
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    res = fa.flash_fwd_resources(torch.bfloat16, head_dim, sk)
+    if res["local_bytes"]:
+        raise AssertionError(f"fwd resources: the bf16 d{head_dim} forward uses local memory: {res}")
+    return res
 
 
 def check_kernels():
@@ -348,6 +397,15 @@ def check_kernels():
     mo, ml = fa.flash_attention_partial(pq, pk, pv, pqp, pkp + 10_000)
     if mo.abs().max().item() != 0.0 or not bool((ml == -1e30).all()):
         raise AssertionError("fully masked hop: expected out = 0 and lse = -1e30")
+
+    # -- the bf16 head_dim-64 forward: ragged, permuted query positions
+    hq, hk, hv = randn(1, 333, 4, 64), randn(1, 333, 2, 64), randn(1, 333, 2, 64)
+    hqp = torch.randperm(333, device=dev, generator=gen).int()[None].contiguous()
+    hkp = torch.arange(333, device=dev, dtype=torch.int32)[None].contiguous()
+    ho, hl = fa.flash_fwd(hq, hk, hv, hqp, hkp, 0.125)
+    rho, rhl = fa.flash_fwd_reference(hq, hk, hv, hqp, hkp, 0.125)
+    checks["bf16 d64 out"] = check("bf16 d64 out", ho, rho, BF16)
+    checks["bf16 d64 lse"] = check_abs("bf16 d64 lse", hl, rhl, LSE_ATOL)
 
     # -- f32 instantiations, small
     fq, fk, fv, fdo = (randn(1, 192, n, 64, dtype=torch.float32) for n in (4, 2, 2, 4))
@@ -440,6 +498,7 @@ def phase_kernels():
     emit({
         "phase": "kernels", "shape": {"b": b, "s": s, "h": h, "kv": k.shape[2], "d": d,
                                       "dtype": "bf16"},
+        "flash_fwd_resources": fwd_resources(d, s),
         "ms": ms, "plain_ms": plain_ms,
         "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd,
         "tflops": {n: work[n][1] / (ms[n] * 1e-3) / 1e12 for n in ms},

@@ -1,26 +1,47 @@
 // Causal GQA flash attention for Hopper (sm_90a): forward, dq and dk/dv.
 //
 // Replaces the three Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- _flash_fwd / _fwd_kernel
+//   flash_fwd_wgmma_kernel (bf16) and flash_fwd_f32_kernel
+//                        <- _flash_fwd / _fwd_kernel
 //   flash_bwd_dq_kernel  <- flash_attention_partial_bwd / _bwd_dq_kernel
 //   flash_bwd_dkv_kernel <- flash_attention_partial_bwd / _bwd_dkv_kernel
 // and computes what they compute: masks from explicit int32 position arrays
 // (q_pos >= k_pos, so permuted ring/zigzag layouts work), skips a tile that
-// lies wholly above the diagonal, gives empty rows out = 0 and lse = -1e30,
-// and rounds to the input type where the TPU kernels round (p before P.V,
-// ds before dS.K, p and ds before the dk/dv products). Accumulators are f32.
+// lies wholly above the diagonal (min k_pos > max q_pos), gives empty rows
+// out = 0 and lse = -1e30, and rounds to the input type where the TPU
+// kernels round (p before P.V, ds before dS.K, p and ds before the dk/dv
+// products). Accumulators are f32.
 //
-// What bounds them on the H100: at the train step's shapes (s = 2048,
-// d = 128) every kernel does ~2*d flops per byte it must move, far above
-// the card's ~295 bf16 flops per byte, so the tensor cores are the bound.
-// This first version feeds them with WMMA bf16 16x16x16 products out of
-// shared memory (no wgmma, TMA or warp specialisation yet): each block of
-// 4 warps holds a 64-row tile and each warp owns a 16-row strip, so the
-// softmax bookkeeping for a row never leaves its warp. Accumulators live in
-// shared memory as f32, which lets the online-softmax rescale work without
-// knowing the fragment layout. Causal tiles are launched heaviest first.
-// The f32 instantiation runs the same code with FMA products in place of
-// WMMA, for correctness rather than speed.
+// What bounds them on the H100: at the train step's shapes (b = 4,
+// s = 2048, 8 heads of 128 over 4 KV heads) every kernel does ~2*d flops
+// per byte it must move, far above the card's ~295 bf16 flops per byte, so
+// the tensor cores are the bound: the forward's 34.4 GFLOP of causal work
+// take at least 0.0348 ms at 989 TFLOP/s.
+//
+// The bf16 forward (flash_fwd_wgmma_kernel) is built for that bound:
+// - a block of two warpgroups (256 threads) per 128 query rows, each
+//   warpgroup owning 64; S = Q.K^T (wgmma m64n128k16 over 128-key tiles)
+//   and O += P.V (m64n{64,128}k16) go through wgmma with f32 accumulators,
+//   Q and K from shared memory, P from registers;
+// - S, the running max m, the running sum l and O stay in registers for
+//   the whole KV loop: a row lives in the four threads of a quad, so a row
+//   max is two shuffles, l is summed per thread and reduced once at the
+//   end, and the online-softmax correction is a register multiply. The f32
+//   accumulator layout of S is the bf16 A-fragment layout of P.V, so p is
+//   rounded to bf16 in place and fed straight back;
+// - Q lands once; K, V and the key positions go through a two-stage ring
+//   filled by cp.async (16-byte copies, zero-filled past sk), so tile j+1
+//   is in flight while tile j is computed, with one barrier per tile;
+// - every tile is stored in wgmma's 128-byte swizzle layout, which the
+//   tensor cores read without bank conflicts and the copies fill from
+//   whole 128-byte lines;
+// - the block's max query position and every KV tile's min key position
+//   are computed once, by warp reductions, before the loop; skipped tiles
+//   are never loaded; causal tiles launch heaviest first over all heads.
+// The f32 instantiation (flash_fwd_f32_kernel), dq and dk/dv keep the
+// first design, for correctness rather than speed: each block of 4 warps
+// holds a 64-row tile and each warp owns a 16-row strip, with WMMA bf16
+// 16x16x16 products (FMA in f32) and f32 accumulators in shared memory.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -42,7 +63,11 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps; warp w owns rows [16w, 16w + 16)
 constexpr int kRows = 64;      // rows of a block's own tile
 constexpr int kBlockK = 64;    // kv rows per inner step of fwd and dq
+// The bf16 forward's warpgroups per block, each owning 64 query rows.
+constexpr int kFwdWarpgroups = 2;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
@@ -204,18 +229,473 @@ struct Layout {
   static constexpr size_t vec(int n) { return r128(n * 4); }
 };
 
-template <typename T, int D>
-struct FwdSmem : Layout<T, D, kBlockK> {
-  using L = Layout<T, D, kBlockK>;
-  static constexpr size_t bytes = L::tile_t(kRows) + 2 * L::tile_t(kBlockK) +
-                                  L::tile_s(kRows) + L::tile_p(kRows) +
-                                  L::tile_o(kRows) + 4 * L::vec(kRows) +
-                                  L::vec(kBlockK);
+// The block's max query position (rows past sq excluded) and the min key
+// position of each of the nk KV tiles of `tile` rows (keys past sk
+// excluded; INT_MAX for none) into kmin: each computed once per block by
+// warp reductions. `red` holds one int per warp. Ends with __syncthreads.
+template <int ROWS>
+__device__ int block_positions(const int* qpos, int q0, int sq, const int* kpos, int sk,
+                               int tile, int* red, int* kmin) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int v = INT_MIN;
+  for (int i = threadIdx.x; i < ROWS; i += blockDim.x) {
+    if (q0 + i < sq) v = max(v, qpos[q0 + i]);
+  }
+  v = __reduce_max_sync(0xffffffffu, v);
+  if (lane == 0) red[warp] = v;
+  const int nk = (sk + tile - 1) / tile;
+  for (int t = warp; t < nk; t += nwarps) {
+    int m = INT_MAX;
+    for (int c = t * tile + lane; c < min(sk, (t + 1) * tile); c += 32) m = min(m, kpos[c]);
+    m = __reduce_min_sync(0xffffffffu, m);
+    if (lane == 0) kmin[t] = m;
+  }
+  __syncthreads();
+  int qmax = INT_MIN;
+  for (int w = 0; w < nwarps; ++w) qmax = max(qmax, red[w]);
+  return qmax;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward: wgmma, register accumulators, cp.async ring.
+
+// K/V ring depth: tiles j+1 .. j+kFwdStages-1 load while tile j computes.
+constexpr int kFwdStages = 2;
+// Keys per KV tile of the bf16 forward: wgmma's N for S, its K for P.V.
+constexpr int kFwdBlockN = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (src is
+// then not read, but stays a valid address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most PENDING of this thread's copy groups are in flight,
+// then makes the landed copies visible to wgmma's (async proxy) reads; a
+// barrier after it publishes every thread's.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait_for_wgmma() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins accumulator registers at this point of the program, so the compiler
+// neither reads them before the wgmma that writes them has been waited for
+// nor writes them while a wgmma may still read them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor for the 128-byte swizzle layout
+// (see load_rows_async): `sbo` is the byte stride between groups of 8 rows
+// of 128 bytes, `lbo` (MN-major only) the stride between 64-element column
+// blocks. The atoms are 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* ptr, uint32_t lbo,
+                                                    uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(ptr) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d[0, 32) (+)= A . B over one k16 step; A and B from shared memory, both
+// K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[0, 32) += A . B over one k16 step; A as bf16 pairs in registers, B from
+// shared memory MN-major (the transposed form for 16-bit types).
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0, 64) += A . B over one k16 step; A as bf16 pairs in registers, B from
+// shared memory MN-major (the transposed form for 16-bit types).
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_qk(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_m64n64k16(d, a, b, accumulate);
+  } else {
+    wgmma_ss_m64n128k16(d, a, b, accumulate);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_rs_m64n64k16(d, a, b);
+  } else {
+    wgmma_rs_m64n128k16(d, a, b);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + ROWS) of one head (row stride `row_stride`, D bf16
+// each) into wgmma's 128-byte swizzle layout: D / 64 column blocks of
+// ROWS x 128 bytes, block b at byte b * ROWS * 128, row r at r * 128 in
+// it, and its 16-byte chunk c at ((c ^ (r % 8)) * 16). dst is 1024-byte
+// aligned. Eight lanes copy one row's 128 bytes, so a warp reads 4 whole
+// lines and writes 4 rows without bank conflicts. Rows at or past nrows
+// are zero-filled. K-major this is the Q and K operand (SBO 1024 bytes);
+// read MN-major it is V's (LBO ROWS * 128, SBO 1024).
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                long long row_stride, int row0, int nrows) {
+  constexpr int kChunks = ROWS * D / 8;
+  static_assert(kChunks % NT == 0, "every thread copies the same number of chunks");
+#pragma unroll
+  for (int n = 0; n < kChunks / NT; ++n) {
+    const int i = n * NT + threadIdx.x;  // (block b, row r, chunk c), c fastest
+    const int c = i & 7;
+    const int r = (i >> 3) % ROWS;
+    const int b = (i >> 3) / ROWS;
+    const bool in = row0 + r < nrows;
+    cp_async_16(reinterpret_cast<char*>(dst) + (b * ROWS + r) * 128 + ((c ^ (r & 7)) << 4),
+                src + (in ? row0 + r : row0) * row_stride + b * 64 + c * 8, in);
+  }
+}
+
+__host__ __device__ constexpr size_t r1024(size_t bytes) {
+  return (bytes + 1023) / 1024 * 1024;
+}
+
+// Q, then the ring's stages (K, V, key positions), every tile on a
+// 1024-byte boundary as the swizzle needs; 1024 bytes of slack to align
+// the dynamic shared memory itself.
+template <int D, int WG>
+struct FwdWgmmaSmem {
+  static constexpr int kRowsQ = 64 * WG;
+  static constexpr size_t q = r1024(kRowsQ * D * sizeof(bf16));
+  static constexpr size_t kv = r1024(kFwdBlockN * D * sizeof(bf16));
+  static constexpr size_t stage = r1024(2 * kv + kFwdBlockN * sizeof(int));
+  static constexpr size_t fixed = 1024 + q + kFwdStages * stage + r128(32 * sizeof(int));
+  static size_t bytes(int sk) {
+    return fixed + r128(((sk + kFwdBlockN - 1) / kFwdBlockN) * sizeof(int));
+  }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
-  using L = FwdSmem<T, D>;
+// One block of WG warpgroups per (64 * WG query rows, head, batch); warpgroup
+// w owns rows [64 w, 64 w + 64) of the tile, warp x of it rows 16 x + g and
+// 16 x + g + 8 with g = lane / 4. Thread (g, c = lane % 4) holds columns
+// 8 j + 2 c and 8 j + 2 c + 1 of both rows in every accumulator (wgmma's
+// f32 layout): s[4 j + 2 i + e] and o[4 j + 2 i + e] are row i, column
+// 8 j + 2 c + e.
+template <int D, int WG>
+__global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const FlashParams p) {
+  using L = FwdWgmmaSmem<D, WG>;
+  constexpr int NT = 128 * WG;
+  constexpr int N = kFwdBlockN;
+  extern __shared__ __align__(128) char smem_raw[];
+  SmemAlloc sm{smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023)};
+  bf16* sQ = sm.take<bf16>(L::kRowsQ * D);
+  char* sRing = sm.take<char>(kFwdStages * L::stage);
+  int* sRed = sm.take<int>(32);
+  int* sKmin = sm.take<int>((p.sk + N - 1) / N);
+
+  const int tile = gridDim.z - 1 - blockIdx.z;  // longest causal rows first, all heads
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int kvh = hh / (p.h / p.kvh);
+  const int q0 = tile * L::kRowsQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_in = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);  // row i = 0; i = 1 is + 8
+  const int c2 = 2 * (lane & 3);
+
+  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const int* qpos = p.qpos + (long long)bb * p.sq;
+  const int* kpos = p.kpos + (long long)bb * p.sk;
+
+  // Tile t's K, V and key positions into ring stage st, as one copy group.
+  auto load_stage = [&](int st, int t) {
+    char* base = sRing + st * L::stage;
+    const int k0 = t * N;
+    load_rows_async<N, D, NT>(reinterpret_cast<bf16*>(base), k, p.k_ss, k0, p.sk);
+    load_rows_async<N, D, NT>(reinterpret_cast<bf16*>(base + L::kv), v, p.v_ss, k0, p.sk);
+    const int c = threadIdx.x;
+    if (c < N) {
+      const bool in = k0 + c < p.sk;
+      cp_async_4(reinterpret_cast<int*>(base + 2 * L::kv) + c, kpos + (in ? k0 + c : 0), in);
+    }
+  };
+
+  load_rows_async<L::kRowsQ, D, NT>(sQ, q, p.q_ss, q0, p.sq);
+  const int qmax = block_positions<L::kRowsQ>(qpos, q0, p.sq, kpos, p.sk, N, sRed, sKmin);
+  const int nk = (p.sk + N - 1) / N;
+  // The next tile at or after t that is not wholly above the diagonal
+  // (block-uniform: every thread reads the same kmin).
+  auto next_live = [&](int t) {
+    while (t < nk && sKmin[t] > qmax) ++t;
+    return t;
+  };
+  // One copy group per ring stage, the first with Q; an empty group when
+  // no live tile is left, so that group i always holds the i-th tile.
+  int t = next_live(0);
+  int fetch = t;  // the next live tile to load
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    if (fetch < nk) {
+      load_stage(st, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_in + 8 * i;
+    qp[i] = row < p.sq ? qpos[row] : INT_MIN;
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, log2 units, as the quad agrees on it
+  float l[2] = {0.f, 0.f};          // running sum of this thread's columns, f32
+  const float scale_log2 = p.scale * kLog2e;
+  // Q: this warpgroup's 64 rows, K-major. Step kk of 16 columns starts in
+  // column block kk / 4, 32 bytes further per step inside it.
+  const uint64_t q_desc = smem_desc_sw128(sQ + (warp >> 2) * 64 * 64, 16, 1024);
+  auto k_step = [](int rows, int kk) { return ((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4; };
+
+  for (int it = 0; t < nk; ++it) {
+    const int st = it % kFwdStages;
+    cp_async_wait_for_wgmma<kFwdStages - 2>();
+    __syncthreads();  // tile t has landed for all; the stage of tile t - 1 is free again
+    if (fetch < nk) {
+      load_stage((it + kFwdStages - 1) % kFwdStages, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+
+    const char* base = sRing + st * L::stage;
+    const bf16* sK = reinterpret_cast<const bf16*>(base);
+    const bf16* sV = reinterpret_cast<const bf16*>(base + L::kv);
+    const int* sKpos = reinterpret_cast<const int*>(base + 2 * L::kv);
+    const int k0 = t * N;
+
+    // S = Q . K^T: D / 16 steps along head_dim, K K-major like Q.
+    float s[N / 2];
+    const uint64_t k_desc = smem_desc_sw128(sK, 16, 1024);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_qk<N>(s, q_desc + k_step(L::kRowsQ, kk), k_desc + k_step(N, kk), kk);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(s);
+
+    // Scale to log2 units and mask from the positions; masked entries take
+    // the sentinel and, below, p = 0.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + c2 + e;
+        const int kp = sKpos[col];
+        const bool in = k0 + col < p.sk;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[4 * j + 2 * i + e];
+          x = (in && qp[i] >= kp) ? x * scale_log2 : kNegInf;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+    }
+    float corr[2], mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      // A row with nothing unmasked yet subtracts 0, so its sentinels give
+      // exp2(-1e30) = 0 and not exp2(0).
+      mu[i] = m_new <= kNegInf ? 0.f : m_new;
+    }
+    // p in f32 into l, unrounded; rounded to bf16 for P.V. The pairs come
+    // out in the A-fragment order: P.V step kk takes pr[4 kk, 4 kk + 4).
+    uint32_t pr[N / 4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float p0 = exp2f(s[4 * j + 2 * i] - mu[i]);
+        const float p1 = exp2f(s[4 * j + 2 * i + 1] - mu[i]);
+        rs[i] += p0 + p1;
+        pr[2 * j + i] = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) o[4 * j + 2 * i + e] *= corr[i];
+      }
+    }
+
+    // O += P . V: N / 16 steps along the KV tile, V read MN-major. The
+    // correction and the packing are pinned before the fence.
+    fence_regs(o);
+    fence_regs(pr);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t a[4] = {pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3]};
+      wgmma_rs_pv<D>(o, a, smem_desc_sw128(sV + kk * 16 * 64, N * 128, 1024));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(o);
+    t = next_live(t + 1);
+  }
+  cp_async_wait_for_wgmma<0>();  // no copy outlives the block
+
+  bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = q0 + row_in + 8 * i;
+    if (row >= p.sq) continue;
+    const bool empty = m[i] <= kNegInf;
+    const float ls = fmaxf(sum, 1e-30f);
+    const float inv = empty ? 0.f : 1.f / ls;
+    const long long at = ((long long)bb * p.sq + row) * p.h + hh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + at * D + 8 * j + c2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    }
+    if ((lane & 3) == 0) p.lse_out[at] = empty ? kNegInf : m[i] * kLn2 + logf(ls);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 forward: the first design's FMA strips, for correctness.
+
+template <int D>
+struct FwdSmem : Layout<float, D, kBlockK> {
+  using L = Layout<float, D, kBlockK>;
+  static constexpr size_t fixed = L::tile_t(kRows) + 2 * L::tile_t(kBlockK) +
+                                  L::tile_s(kRows) + L::tile_p(kRows) +
+                                  L::tile_o(kRows) + 4 * L::vec(kRows) +
+                                  L::vec(kBlockK) + L::vec(32);
+  static size_t bytes(int sk) { return fixed + L::vec((sk + kBlockK - 1) / kBlockK); }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashParams p) {
+  using T = float;
+  using L = FwdSmem<D>;
   extern __shared__ __align__(128) char smem_raw[];
   SmemAlloc sm{smem_raw};
   T* sQ = sm.take<T>(kRows * L::LDT);
@@ -229,6 +709,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   float* sCorr = sm.take<float>(kRows);
   int* sQpos = sm.take<int>(kRows);
   int* sKpos = sm.take<int>(kBlockK);
+  int* sRed = sm.take<int>(32);
+  int* sKmin = sm.take<int>((p.sk + kBlockK - 1) / kBlockK);
 
   const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int hh = blockIdx.y, bb = blockIdx.z;
@@ -249,21 +731,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     sL[i] = 0.f;
   }
   for (int i = tid; i < kRows * L::LDO; i += kThreads) sO[i] = 0.f;
-  __syncthreads();
-  int qmax = INT_MIN;
-  for (int i = 0; i < kRows; ++i) qmax = max(qmax, sQpos[i]);
+  const int qmax = block_positions<kRows>(qpos, q0, p.sq, kpos, p.sk, kBlockK, sRed, sKmin);
 
   const int nk = (p.sk + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < nk; ++kt) {
+    if (sKmin[kt] > qmax) continue;  // wholly above the diagonal (block-uniform)
     const int k0 = kt * kBlockK;
     __syncthreads();  // every reader of the previous tile is done
     for (int i = tid; i < kBlockK; i += kThreads) {
       sKpos[i] = k0 + i < p.sk ? kpos[k0 + i] : INT_MAX;
     }
-    __syncthreads();
-    int kmin = INT_MAX;
-    for (int i = 0; i < kBlockK; ++i) kmin = min(kmin, sKpos[i]);
-    if (kmin > qmax) continue;  // wholly above the diagonal (block-uniform)
     load_tile<T, kBlockK, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
     load_tile<T, kBlockK, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
     __syncthreads();
@@ -289,7 +766,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
       for (int j = 0; j < kBlockK / 32; ++j) {
         const float pj = ok[j] ? expf(s[j] - m_new) : 0.f;
         sum += pj;
-        sP[r * L::LDP + lane + 32 * j] = from_float<T>(pj);
+        sP[r * L::LDP + lane + 32 * j] = pj;
       }
       sum = warp_sum(sum);
       const float corr = expf(m_prev - m_new);
@@ -318,7 +795,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     const float l = fmaxf(sL[r], 1e-30f);
     const long long at = ((long long)bb * p.sq + row) * p.h + hh;
     for (int c = lane; c < D; c += 32) {
-      out[at * D + c] = from_float<T>(empty ? 0.f : sO[r * L::LDO + c] / l);
+      out[at * D + c] = empty ? 0.f : sO[r * L::LDO + c] / l;
     }
     if (lane == 0) p.lse_out[at] = empty ? kNegInf : sM[r] + logf(l);
   }
@@ -540,18 +1017,46 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const FlashParams& p,
-           cudaStream_t stream) {
+           cudaStream_t stream, int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int fwd(const FlashParams& p, cudaStream_t s) {
+// Blocks of `kernel` resident per SM at `threads` and `smem`, and the
+// registers and local memory (spills and stack) of each of its threads.
+template <typename Kernel>
+int resources(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, (const void*)kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = threads;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// The bf16 forward's grid: heads, batch, then query tiles, so that the
+// block scheduler takes the heaviest tiles of every head first.
+template <int D>
+int fwd_bf16(const FlashParams& p, cudaStream_t s) {
+  constexpr int WG = kFwdWarpgroups;
+  dim3 grid(p.h, p.b, (p.sq + 64 * WG - 1) / (64 * WG));
+  return launch(flash_fwd_wgmma_kernel<D, WG>, grid, FwdWgmmaSmem<D, WG>::bytes(p.sk), p, s,
+                128 * WG);
+}
+
+template <int D>
+int fwd_f32(const FlashParams& p, cudaStream_t s) {
   dim3 grid((p.sq + kRows - 1) / kRows, p.h, p.b);
-  return launch(flash_fwd_kernel<T, D>, grid, FwdSmem<T, D>::bytes, p, s);
+  return launch(flash_fwd_f32_kernel<D>, grid, FwdSmem<D>::bytes(p.sk), p, s);
 }
 
 template <typename T, typename OutT, int D>
@@ -576,10 +1081,29 @@ extern "C" {
 
 int tpuft_flash_fwd(const FlashParams* p, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && p->d == 64) return fwd<bf16, 64>(*p, s);
-  if (dtype == kBF16 && p->d == 128) return fwd<bf16, 128>(*p, s);
-  if (dtype == kF32 && p->d == 64) return fwd<float, 64>(*p, s);
-  if (dtype == kF32 && p->d == 128) return fwd<float, 128>(*p, s);
+  if (dtype == kBF16 && p->d == 64) return fwd_bf16<64>(*p, s);
+  if (dtype == kBF16 && p->d == 128) return fwd_bf16<128>(*p, s);
+  if (dtype == kF32 && p->d == 64) return fwd_f32<64>(*p, s);
+  if (dtype == kF32 && p->d == 128) return fwd_f32<128>(*p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward's resources for a KV length of sk (its shared memory holds
+// one int per KV tile): out[0] resident blocks per SM, out[1] threads
+// per block, out[2] registers and out[3] local-memory bytes per thread.
+int tpuft_flash_fwd_resources(int dtype, int d, int sk, int* out) {
+  constexpr int WG = kFwdWarpgroups;
+  if (dtype == kBF16 && (d == 64 || d == 128)) {
+    return d == 64 ? resources(flash_fwd_wgmma_kernel<64, WG>, 128 * WG,
+                               FwdWgmmaSmem<64, WG>::bytes(sk), out)
+                   : resources(flash_fwd_wgmma_kernel<128, WG>, 128 * WG,
+                               FwdWgmmaSmem<128, WG>::bytes(sk), out);
+  }
+  if (dtype == kF32 && (d == 64 || d == 128)) {
+    return d == 64 ? resources(flash_fwd_f32_kernel<64>, kThreads, FwdSmem<64>::bytes(sk), out)
+                   : resources(flash_fwd_f32_kernel<128>, kThreads, FwdSmem<128>::bytes(sk),
+                               out);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

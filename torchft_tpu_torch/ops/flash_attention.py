@@ -15,8 +15,10 @@ package's three Pallas kernels:
 Each masks from explicit int32 position arrays (``q_pos >= k_pos``), skips
 a tile wholly above the diagonal, and gives fully masked rows ``out = 0``,
 ``lse = -1e30``. They read q/k/v in the model's ``(b, s, heads, d)``
-layout through strides, so no transposes are made. The source says what
-bounds them on the H100 and how the design meets it.
+layout through strides, so no transposes are made. The bf16 forward runs
+on Hopper's wgmma with its accumulators in registers and K/V streamed
+through a cp.async ring; the source says what bounds each kernel on the
+H100 and how its design meets it.
 
 Every wrapper takes its kernel for a CUDA tensor and its plain version
 for a CPU tensor; there is no fallback from one to the other. The kernels
@@ -44,6 +46,7 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_dkv",
     "flash_fwd_reference",
+    "flash_fwd_resources",
     "flash_bwd_dq_reference",
     "flash_bwd_dkv_reference",
     "launches",
@@ -88,11 +91,13 @@ def _library() -> ctypes.CDLL:
         from torchft_tpu_torch._build import load_library
 
         lib = load_library("flash_attention")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i32p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         lib.tpuft_flash_fwd.argtypes = [ptr, i32, ptr]
         lib.tpuft_flash_bwd_dq.argtypes = [ptr, i32, i32, ptr]
         lib.tpuft_flash_bwd_dkv.argtypes = [ptr, i32, i32, ptr]
-        for fn in (lib.tpuft_flash_fwd, lib.tpuft_flash_bwd_dq, lib.tpuft_flash_bwd_dkv):
+        lib.tpuft_flash_fwd_resources.argtypes = [i32, i32, i32, i32p]
+        for fn in (lib.tpuft_flash_fwd, lib.tpuft_flash_bwd_dq, lib.tpuft_flash_bwd_dkv,
+                   lib.tpuft_flash_fwd_resources):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -210,6 +215,20 @@ def flash_fwd(q, k, v, q_positions, k_positions, scale):
     p.out, p.lse_out = out.data_ptr(), lse.data_ptr()
     _launch("flash_fwd", _library().tpuft_flash_fwd, p, q.device, code)
     return out, lse
+
+
+def flash_fwd_resources(dtype: torch.dtype, head_dim: int, sk: int) -> Dict[str, int]:
+    """The forward kernel's resources on the current card, for keys of
+    length ``sk``: resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads per block,
+    and registers and local-memory bytes per thread (``cudaFuncGetAttributes``;
+    local memory holds spills and stack)."""
+    out = (ctypes.c_int * 4)()
+    rc = _library().tpuft_flash_fwd_resources(_DTYPE_CODE[dtype], head_dim, sk, out)
+    if rc:
+        raise RuntimeError(f"flash_fwd resources query failed with CUDA error {rc}")
+    keys = ("blocks_per_sm", "threads_per_block", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 # -------------------------------------------------- backward (B4 and B5)
@@ -339,8 +358,9 @@ def flash_attention(
 
     Shapes: q (b, s, h, d); k/v (b, s, kv_heads, d); h % kv_heads == 0.
     ``block_q``/``block_k`` are kept for the JAX signature and not used:
-    the CUDA kernels tile by 64 rows of q and of kv, chosen for the H100's
-    shared memory and its 4-warp blocks (see csrc/flash_attention.cu).
+    the CUDA kernels tile by 128 query rows and 128 keys (the bf16
+    forward) or 64 and 64 (the others), chosen for the H100's shared
+    memory, registers and wgmma shapes (see csrc/flash_attention.cu).
     """
     del block_q, block_k
     if q.shape[2] % k.shape[2]:
