@@ -15,12 +15,14 @@ Phases, each printing one JSON line:
 3. kernel_checks, kernels: the flash kernels (B3-B5) against their plain
    PyTorch versions on the card, at the train step's shapes (b=4, s=2048,
    8 query heads of 128 over 4 KV heads, bf16), on a ragged partial with
-   permuted positions, on a fully masked hop, on a ragged bf16 head_dim-64
-   forward with permuted positions, and in f32 on a small case; then their
-   times beside the plain version, the card's bound and, as a yardstick the
-   port never calls, scaled_dot_product_attention; and the bf16 forward's
-   registers, local memory (none allowed: no spill) and resident blocks
-   per SM, read from the loaded kernel.
+   permuted positions and f32 gradients, on a fully masked hop, on a
+   ragged bf16 head_dim-64 forward with permuted positions, on a ragged
+   bf16 head_dim-64 backward with a GQA group of 4 and permuted positions
+   (bf16 and f32 gradients), and in f32 on a small case; then their times
+   beside the plain version, the card's bound and, as a yardstick the port
+   never calls, scaled_dot_product_attention; and every bf16 kernel
+   instance's registers, local memory (none allowed: no spill) and
+   resident blocks per SM, read from the loaded kernels.
 4. codec_checks, codec: the blockwise codec kernels (B1 quantize, B2
    dequantize) byte for byte against their plain versions, fp8 and int8,
    at the FT-DDP path's bucket shapes (16 MiB of bf16 gradients as f32,
@@ -35,7 +37,8 @@ Phases, each printing one JSON line:
    same widths takes 2 steps with the kernels and 2 with dense attention,
    and their losses must agree.
 6. profile: 2 more steps of the flagship model under torch.profiler, for
-   device time by kernel group and the device's busy share.
+   device time by kernel group, the device's busy share, the top kernels
+   and every flash kernel.
 7. ft_ddp: two replica groups, each a process of its own on the one card,
    build the flagship model from seed 0 and take FT_STEPS steps of
    Optimizer.make_step_fn(loss_fn, should_quantize=True) under their own
@@ -49,9 +52,10 @@ Phases, each printing one JSON line:
    their step time over the train phase's is printed as such, not as the
    fault-tolerance overhead.
 8. planted_faults: copies of the kernels with known faults (a skipped GQA
-   head, a skipped KV or query tile, a dropped softmax correction, a mask
-   from indices, a max that drops NaN, ...), built and
-   checked in parallel; the run fails unless the checks reject every one.
+   head, a skipped KV or query tile, a dropped softmax correction or
+   delta, masks from indices, an unmasked ragged tail, a max that drops
+   NaN, ...), built and checked in parallel; the run fails unless the
+   checks reject every one.
 
 Then the kernels line, the card's nvidia-smi line and, last, the result.
 Any failure raises and exits non-zero; without a CUDA device it exits
@@ -121,10 +125,11 @@ FT_GROUPS = 2
 FT_TIMEOUT_S = 600
 
 # Known faults for the planted_faults phase: (name, source in csrc/, text
-# in it, its replacement, the check that must reject it). Tile 16 of dq
-# and dk/dv covers keys or queries 1024-1087 and tile 8 of the bf16
-# forward keys 1024-1151, so only the later rows lose a small share of
-# their terms.
+# in it, its replacement, the check that must reject it); a fault made of
+# several edits gives tuples of texts and replacements. Tile 16 of dq and
+# dk/dv covers keys or queries 1024-1087 and tile 8 of the bf16 forward
+# keys 1024-1151, so only the later rows lose a small share of their
+# terms.
 PLANTED_FAULTS = (
     ("fwd drops the P.V of KV tile 8 (keys 1024-1151)", "flash_attention.cu",
      "      wgmma_rs_pv<D>(o, a,",
@@ -140,18 +145,42 @@ PLANTED_FAULTS = (
      "x = (in && qp[i] >= kp) ?",
      "x = (in && q0 + row_in + 8 * i >= k0 + col) ?",
      "partial out"),
-    ("dq drops the dS.K of KV tile 16", "flash_attention.cu",
-     "    strip_pv<T, kBlockK, D>(sDS + r0 * L::LDP,",
-     "    if (kt != 16) strip_pv<T, kBlockK, D>(sDS + r0 * L::LDP,",
+    ("dq drops the dS.K of KV tile 16 (keys 1024-1087)", "flash_attention.cu",
+     "      wgmma_rs_pv<D>(dq, a,",
+     "      if (t != 16) wgmma_rs_pv<D>(dq, a,",
+     "flash_bwd_dq"),
+    ("dq masks by row and column index, not by position", "flash_attention.cu",
+     "const bool m0 = qp[i] >= kp.x, m1 = qp[i] >= kp.y;",
+     "const bool m0 = q0 + row_in + 8 * i >= t * N + 8 * j + c2,"
+     " m1 = q0 + row_in + 8 * i >= t * N + 8 * j + c2 + 1;",
+     "partial dq"),
+    ("dq drops delta from dS = p (dP - delta) scale", "flash_attention.cu",
+     "const float d0 = dp[a] - dl[i], d1 = dp[a + 1] - dl[i];",
+     "const float d0 = dp[a], d1 = dp[a + 1];",
      "flash_bwd_dq"),
     ("dk/dv skip the last query head of each GQA group", "flash_attention.cu",
-     "for (int g = 0; g < group; ++g) {",
-     "for (int g = 0; g < group - 1; ++g) {",
+     "const int n_items = group * nq;",
+     "const int n_items = (group - 1) * nq;",
      "flash_bwd_dkv"),
-    ("dk/dv skip query tile 16", "flash_attention.cu",
-     "if (qmax < kmin) continue;",
-     "if (qmax < kmin || qt == 16) continue;",
+    ("dk/dv skip query tile 16 (queries 1024-1087)", "flash_attention.cu",
+     "while (item < n_items && sQmax[item % nq] < kmin) ++item;",
+     "while (item < n_items && (sQmax[item % nq] < kmin || item % nq == 16)) ++item;",
      "flash_bwd_dkv"),
+    ("dk/dv mask by row and column index, not by position", "flash_attention.cu",
+     "const bool m0 = qp.x >= kp[i], m1 = qp.y >= kp[i];",
+     "const bool m0 = (item % nq) * BQ + 8 * j + c2 >= k0 + row_in + 8 * i,"
+     " m1 = (item % nq) * BQ + 8 * j + c2 + 1 >= k0 + row_in + 8 * i;",
+     "partial dk"),
+    # Rows past sq are zero-filled, so an unmasked tail adds p * 0 to dk/dv
+    # and each edit alone is exact: the fault is both together, the tail's
+    # rows copied from the tile's first row and given a position that
+    # every key passes (the partial case has 200 queries, no multiple of 64).
+    ("dk/dv neither zero-fill nor mask the ragged query tail", "flash_attention.cu",
+     ("src + (in ? row0 + r : row0) * row_stride + b * 64 + c * 8, in);",
+      "pos[c] = INT_MIN;"),
+     ("src + (in ? row0 + r : row0) * row_stride + b * 64 + c * 8, true);",
+      "pos[c] = INT_MAX;"),
+     "partial dk"),
     ("quantize's max drops a NaN (fmaxf)", "quantization.cu",
      "return (a > b || a != a) ? a : b;  // a NaN on either side wins",
      "return fmaxf(a, b);",
@@ -320,18 +349,32 @@ def ptxas_kernels(ptxas: str) -> dict:
     return kernels
 
 
-def fwd_resources(head_dim: int, sk: int) -> dict:
-    """The bf16 forward's resident blocks per SM, registers and local-memory
-    bytes per thread at head_dim and a KV length of sk, read from the loaded
-    kernel. Raises if it uses local memory: its accumulators are meant to
-    stay in registers, with no spill."""
+def fault_edits(fault) -> list:
+    """A planted fault's (text, replacement) pairs: one, or several made
+    together."""
+    _, _, old, new, _ = fault
+    return list(zip(old, new)) if isinstance(old, tuple) else [(old, new)]
+
+
+def kernel_resources(seq: int) -> dict:
+    """Resident blocks per SM, registers and local-memory bytes per thread
+    of every bf16 kernel instance the port launches (head_dim 64 and 128,
+    bf16 and f32 gradients), read from the loaded kernels at sequence
+    length seq. Raises if any uses local memory: their accumulators are
+    meant to stay in registers, with no spill."""
     import torch
 
     from torchft_tpu_torch.ops import flash_attention as fa
 
-    res = fa.flash_fwd_resources(torch.bfloat16, head_dim, sk)
-    if res["local_bytes"]:
-        raise AssertionError(f"fwd resources: the bf16 d{head_dim} forward uses local memory: {res}")
+    res = {}
+    for kernel in fa.launches:
+        grads = (None,) if kernel == "flash_fwd" else (torch.bfloat16, torch.float32)
+        for d in (64, 128):
+            for out in grads:
+                name = f"{kernel} d{d}" + (f" {str(out)[6:]} grads" if out else "")
+                res[name] = fa.flash_resources(kernel, torch.bfloat16, d, seq, out)
+                if res[name]["local_bytes"]:
+                    raise AssertionError(f"resources: {name} uses local memory: {res[name]}")
     return res
 
 
@@ -406,6 +449,22 @@ def check_kernels():
     rho, rhl = fa.flash_fwd_reference(hq, hk, hv, hqp, hkp, 0.125)
     checks["bf16 d64 out"] = check("bf16 d64 out", ho, rho, BF16)
     checks["bf16 d64 lse"] = check_abs("bf16 d64 lse", hl, rhl, LSE_ATOL)
+
+    # -- bf16 head_dim 64 backward, a GQA group of 4: ragged, permuted query
+    # positions, bf16 and f32 gradients
+    gq, gdo = randn(2, 333, 8, 64), randn(2, 333, 8, 64)
+    gk, gv = randn(2, 333, 2, 64), randn(2, 333, 2, 64)
+    gqp = torch.randperm(333, device=dev, generator=gen).int().expand(2, 333).contiguous()
+    gkp = torch.arange(333, device=dev, dtype=torch.int32).expand(2, 333).contiguous()
+    go, gl = fa.flash_fwd_reference(gq, gk, gv, gqp, gkp, 0.125)
+    gdelta = (gdo.float() * go.float()).sum(-1)
+    for grads in (torch.bfloat16, torch.float32):
+        gargs = (gq, gk, gv, gdo, gl, gdelta, gqp, gkp, 0.125, grads)
+        g_got = (fa.flash_bwd_dq(*gargs), *fa.flash_bwd_dkv(*gargs))
+        g_want = (fa.flash_bwd_dq_reference(*gargs), *fa.flash_bwd_dkv_reference(*gargs))
+        for name, got, want in zip(("dq", "dk", "dv"), g_got, g_want):
+            what = f"group4 d64 {str(grads)[6:]} {name}"
+            checks[what] = check(what, got, want, BF16)
 
     # -- f32 instantiations, small
     fq, fk, fv, fdo = (randn(1, 192, n, 64, dtype=torch.float32) for n in (4, 2, 2, 4))
@@ -484,21 +543,25 @@ def phase_kernels():
         "flash_bwd_dq": "torchft_tpu/ops/flash_attention.py:257",
         "flash_bwd_dkv": "torchft_tpu/ops/flash_attention.py:304",
     }
+    resources = kernel_resources(s)
     entries = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         nbytes, flops = work[name]
         bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        # The instance the train step launches: head_dim 128, bf16 gradients.
+        res = resources[f"{name} d{d}" + ("" if name == "flash_fwd" else " bfloat16 grads")]
         entries.append({
             "name": name, "route": "cuda",
             "source": "torchft_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces[name], "launches": None,
             "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms[name],
+            "registers": res["registers"], "blocks_per_sm": res["blocks_per_sm"],
         })
     emit({
         "phase": "kernels", "shape": {"b": b, "s": s, "h": h, "kv": k.shape[2], "d": d,
                                       "dtype": "bf16"},
-        "flash_fwd_resources": fwd_resources(d, s),
+        "resources": resources,
         "ms": ms, "plain_ms": plain_ms,
         "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd,
         "tflops": {n: work[n][1] / (ms[n] * 1e-3) / 1e12 for n in ms},
@@ -1013,6 +1076,11 @@ def phase_profile(step, batches, steps: int) -> None:
             {"name": n[:120], "ms_per_step": ms, "launches_per_step": c}
             for n, ms, c in kernels[:12]
         ],
+        # Every flash kernel, wherever it ranks.
+        "flash_kernels": [
+            {"name": n[:120], "ms_per_step": ms, "launches_per_step": c}
+            for n, ms, c in kernels if re.search(PROFILE_GROUPS[0][1], n)
+        ],
     })
 
 
@@ -1027,15 +1095,18 @@ def phase_planted_faults() -> None:
     work = Path(tempfile.mkdtemp(prefix="planted_faults_"))
     procs = []
     try:
-        for i, (name, source, old, new, _) in enumerate(PLANTED_FAULTS):
+        for i, fault in enumerate(PLANTED_FAULTS):
+            name, source = fault[:2]
             text = (csrc / source).read_text()
-            if text.count(old) != 1:
-                raise AssertionError(f"planted fault {name!r}: its text is not in {source} once")
+            for old, new in fault_edits(fault):
+                if text.count(old) != 1:
+                    raise AssertionError(f"planted fault {name!r}: its text is not in {source} once")
+                text = text.replace(old, new)
             copy = work / str(i)
             shutil.copytree(ROOT / "torchft_tpu_torch", copy / "torchft_tpu_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", copy)
-            (copy / "torchft_tpu_torch" / "csrc" / source).write_text(text.replace(old, new))
+            (copy / "torchft_tpu_torch" / "csrc" / source).write_text(text)
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", f"import chip_smoke; chip_smoke.{FAULT_CHECKS[source]}()"],
                 cwd=copy, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,

@@ -173,3 +173,46 @@ def test_cpu_path_launches_no_kernel():
     k = torch.zeros(1, 16, 1, 16, requires_grad=True)
     tfa.flash_attention(q, k, k).sum().backward()
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+# bf16 backward: the plain versions the card holds the kernels to, against
+# the JAX package's Pallas backward (interpret mode) on the same bf16
+# inputs, f32 gradients. Both round p before dV and ds before dK and dQ to
+# bf16, from f32 sums taken in other orders, so where a sum lands next to
+# a rounding boundary one ds or p flips by a bf16 ulp (2^-8 of it): the
+# gradients agree to 0.5% of their RMS element by element and to 1e-4 of
+# their norm.
+BF16_GRAD_RMS_FRACTION = 5e-3
+BF16_GRAD_NORM = 1e-4
+
+
+@pytest.mark.parametrize("s,h,kv,d", [(200, 4, 1, 64), (200, 2, 2, 128), (136, 4, 2, 64)])
+def test_bf16_backward_reference_matches_jax_rounding_points(s, h, kv, d):
+    b = 2
+    rng = np.random.default_rng(1000 + s + h + d)
+    q, d_out = _randn(rng, b, s, h, d), _randn(rng, b, s, h, d)
+    k, v = _randn(rng, b, s, kv, d), _randn(rng, b, s, kv, d)
+    qp = np.stack([rng.permutation(s) for _ in range(b)]).astype(np.int32)
+    kp = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    scale = d**-0.5
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, d_out))
+    tqp, tkp = torch.from_numpy(qp), torch.from_numpy(kp)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, tqp, tkp, scale)
+    delta = (tdo.float() * out.float()).sum(-1)
+    args = (tq, tk, tv, tdo, lse, delta, tqp, tkp, scale, torch.float32)
+    port = (tfa.flash_bwd_dq_reference(*args), *tfa.flash_bwd_dkv_reference(*args))
+
+    bf16 = lambda x: jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)  # noqa: E731
+    ref = jfa.flash_attention_partial_bwd(
+        bf16(tq), bf16(tk), bf16(tv), bf16(tdo), bf16(out), jnp.asarray(lse.numpy()),
+        jnp.asarray(qp), jnp.asarray(kp), scale, 64, 128, True, out_dtype=jnp.float32,
+    )
+    for name, got, want in zip(("dq", "dk", "dv"), port, ref):
+        want = np.asarray(want, dtype=np.float32)
+        got = got.numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape
+        rms = np.sqrt(np.mean(want**2))
+        err = np.abs(got - want)
+        assert err.max() <= BF16_GRAD_RMS_FRACTION * rms, (name, err.max() / rms)
+        assert np.linalg.norm(got - want) <= BF16_GRAD_NORM * np.linalg.norm(want), (
+            name, np.linalg.norm(got - want) / np.linalg.norm(want))

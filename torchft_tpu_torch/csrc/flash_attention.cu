@@ -1,47 +1,64 @@
 // Causal GQA flash attention for Hopper (sm_90a): forward, dq and dk/dv.
 //
 // Replaces the three Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
-//   flash_fwd_wgmma_kernel (bf16) and flash_fwd_f32_kernel
-//                        <- _flash_fwd / _fwd_kernel
-//   flash_bwd_dq_kernel  <- flash_attention_partial_bwd / _bwd_dq_kernel
-//   flash_bwd_dkv_kernel <- flash_attention_partial_bwd / _bwd_dkv_kernel
+//   flash_fwd_wgmma_kernel (bf16), flash_fwd_f32_kernel
+//                          <- _flash_fwd / _fwd_kernel
+//   flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_f32_kernel
+//                          <- flash_attention_partial_bwd / _bwd_dq_kernel
+//   flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_f32_kernel
+//                          <- flash_attention_partial_bwd / _bwd_dkv_kernel
 // and computes what they compute: masks from explicit int32 position arrays
 // (q_pos >= k_pos, so permuted ring/zigzag layouts work), skips a tile that
 // lies wholly above the diagonal (min k_pos > max q_pos), gives empty rows
 // out = 0 and lse = -1e30, and rounds to the input type where the TPU
 // kernels round (p before P.V, ds before dS.K, p and ds before the dk/dv
-// products). Accumulators are f32.
+// products; ds from the unrounded p). Accumulators are f32, and each
+// output element is written once, by one block, with no atomics.
 //
 // What bounds them on the H100: at the train step's shapes (b = 4,
 // s = 2048, 8 heads of 128 over 4 KV heads) every kernel does ~2*d flops
 // per byte it must move, far above the card's ~295 bf16 flops per byte, so
 // the tensor cores are the bound: the forward's 34.4 GFLOP of causal work
-// take at least 0.0348 ms at 989 TFLOP/s.
+// take at least 0.0348 ms at 989 TFLOP/s, dq's 1.5 times and dk/dv's twice
+// as much.
 //
-// The bf16 forward (flash_fwd_wgmma_kernel) is built for that bound:
-// - a block of two warpgroups (256 threads) per 128 query rows, each
-//   warpgroup owning 64; S = Q.K^T (wgmma m64n128k16 over 128-key tiles)
-//   and O += P.V (m64n{64,128}k16) go through wgmma with f32 accumulators,
-//   Q and K from shared memory, P from registers;
-// - S, the running max m, the running sum l and O stay in registers for
-//   the whole KV loop: a row lives in the four threads of a quad, so a row
-//   max is two shuffles, l is summed per thread and reduced once at the
-//   end, and the online-softmax correction is a register multiply. The f32
-//   accumulator layout of S is the bf16 A-fragment layout of P.V, so p is
-//   rounded to bf16 in place and fed straight back;
-// - Q lands once; K, V and the key positions go through a two-stage ring
-//   filled by cp.async (16-byte copies, zero-filled past sk), so tile j+1
-//   is in flight while tile j is computed, with one barrier per tile;
+// The three bf16 kernels share one design, built for that bound:
+// - a block of two warpgroups (256 threads), each owning 64 rows of the
+//   block's tile: query rows for the forward and dq, key rows for dk/dv;
+// - every product is a wgmma with f32 accumulators in registers, in one of
+//   two forms: A and B both K-major from shared memory (S = Q.K^T and
+//   dP = dO.V^T, or their transposes S^T = K.Q^T and dP^T = V.dO^T), or A
+//   as bf16 pairs in registers and B read MN-major from shared memory
+//   (O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q). The f32
+//   accumulator layout of the first form is the bf16 A-fragment layout of
+//   the second, so p and ds are rounded in place and fed straight back;
+// - the block's own tile lands once (Q; Q and dO; K and V), and the other
+//   side streams through a two-stage ring filled by cp.async (16-byte
+//   copies, zero-filled past the sequence), so tile j+1 is in flight while
+//   tile j is computed, with one barrier per tile;
 // - every tile is stored in wgmma's 128-byte swizzle layout, which the
 //   tensor cores read without bank conflicts and the copies fill from
 //   whole 128-byte lines;
-// - the block's max query position and every KV tile's min key position
-//   are computed once, by warp reductions, before the loop; skipped tiles
-//   are never loaded; causal tiles launch heaviest first over all heads.
-// The f32 instantiation (flash_fwd_f32_kernel), dq and dk/dv keep the
-// first design, for correctness rather than speed: each block of 4 warps
-// holds a 64-row tile and each warp owns a 16-row strip, with WMMA bf16
-// 16x16x16 products (FMA in f32) and f32 accumulators in shared memory.
+// - positions are reduced once per block, by warp reductions: the block's
+//   max query (min key) position and each streamed tile's min key (max
+//   query) position, so skipped tiles are never loaded; causal tiles
+//   launch heaviest first over all heads.
+// Thread (g = lane / 4, c = lane % 4) of warp x of a warpgroup holds rows
+// 16 x + g and 16 x + g + 8 of the warpgroup's 64, columns 8 j + 2 c and
+// 8 j + 2 c + 1, of every accumulator (wgmma's f32 layout): a[4 j + 2 i + e]
+// is row i, column 8 j + 2 c + e. So a row lives in the four threads of a
+// quad. The forward keeps S, the running max m, the running sum l and O in
+// registers for the whole KV loop (a row max is two shuffles, l is summed
+// per thread and reduced once at the end, the online-softmax correction
+// is a register multiply). dq keeps dQ, and dk/dv keep dK and dV, in
+// registers for their whole loops; with the global lse given, neither
+// needs a correction. dk/dv stream the query tiles of every head of the
+// GQA group as one sequence, so the ring does not drain between heads and
+// the group is summed in the accumulators.
+// The f32 instantiations (flash_*_f32_kernel) keep the first design, for
+// correctness rather than speed: each block of 4 warps holds a 64-row tile
+// and each warp owns a 16-row strip, with FMA products and f32
+// accumulators in shared memory.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -49,27 +66,42 @@
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps; warp w owns rows [16w, 16w + 16)
-constexpr int kRows = 64;      // rows of a block's own tile
-constexpr int kBlockK = 64;    // kv rows per inner step of fwd and dq
-// The bf16 forward's warpgroups per block, each owning 64 query rows.
-constexpr int kFwdWarpgroups = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+// Kernel selectors of the entry points.
+constexpr int kFwd = 0;
+constexpr int kDq = 1;
+constexpr int kDkv = 2;
+
+// The bf16 kernels' block shapes, fixed here. A warpgroup owns 64 rows of
+// the block's tile; a streamed tile has kFwdBlockN keys, kDqBlockN keys or
+// kDkvBlockQ queries (wgmma's N for the first products, its K for the
+// second).
+constexpr int kFwdWarpgroups = 2;
+constexpr int kFwdBlockN = 128;
+constexpr int kDqWarpgroups = 2;
+constexpr int kDqBlockN = 64;
+constexpr int kDkvWarpgroups = 2;
+constexpr int kDkvBlockQ = 64;
+// Ring depth: tiles j+1 .. j+kStages-1 load while tile j computes.
+constexpr int kStages = 2;
+
+// The f32 kernels' shapes.
+constexpr int kThreads = 128;     // 4 warps; warp w owns rows [16w, 16w + 16)
+constexpr int kRows = 64;         // rows of a block's own tile
+constexpr int kBlockK = 64;       // kv rows per inner step of fwd and dq
+constexpr int kDkvBlockQF32 = 32;  // q rows per step of dk/dv, to fit in 227 KB
 
 }  // namespace
 
@@ -103,6 +135,10 @@ __host__ __device__ constexpr size_t r128(size_t bytes) {
   return (bytes + 127) / 128 * 128;
 }
 
+__host__ __device__ constexpr size_t r1024(size_t bytes) {
+  return (bytes + 1023) / 1024 * 1024;
+}
+
 struct SmemAlloc {
   char* p;
   template <typename U>
@@ -112,15 +148,6 @@ struct SmemAlloc {
     return r;
   }
 };
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -134,135 +161,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [row0, row0 + ROWS) of one head (row stride `row_stride`) into a
-// padded shared tile, 16 bytes per load; rows at or past `nrows` are zero.
-template <typename T, int ROWS, int D>
-__device__ void load_tile(T* dst, int ld, const T* src, long long row_stride,
-                          int row0, int nrows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// One warp: C[16][N] = scale * A[16][D] . B[N][D]^T (f32 out; A, B row-major).
-template <typename T, int N, int D>
-__device__ void strip_abt(const T* A, int lda, const T* B, int ldb, float* C,
-                          int ldc, float scale) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, A + k0, lda);
-        wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-#pragma unroll
-      for (int i = 0; i < c.num_elements; ++i) c.x[i] *= scale;
-      wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (int i = lane; i < 16 * N; i += 32) {
-      const int r = i / N, col = i % N;
-      float acc = 0.f;
-      for (int k = 0; k < D; ++k) acc += A[r * lda + k] * B[col * ldb + k];
-      C[r * ldc + col] = acc * scale;
-    }
-  }
-  __syncwarp();
-}
-
-// One warp: C[16][D] += P[16][N] . V[N][D] (f32 accumulator; P, V row-major).
-template <typename T, int N, int D>
-__device__ void strip_pv(const T* P, int ldp, const T* V, int ldv, float* C,
-                         int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, C + d0, ldc, wmma::mem_row_major);
-#pragma unroll
-      for (int k0 = 0; k0 < N; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, P + k0, ldp);
-        wmma::load_matrix_sync(b, V + k0 * ldv + d0, ldv);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + d0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = i / D, col = i % D;
-      float acc = C[r * ldc + col];
-      for (int k = 0; k < N; ++k) acc += P[r * ldp + k] * V[k * ldv + col];
-      C[r * ldc + col] = acc;
-    }
-  }
-  __syncwarp();
-}
-
-// Padded leading dimensions: every 16-row strip and 16-column step starts
-// on a 32-byte boundary (wmma's requirement) and the pad staggers banks.
-template <typename T, int D, int N>
-struct Layout {
-  static constexpr int LDT = D + 8;  // T tiles of head_dim columns
-  static constexpr int LDS = N + 4;  // f32 score tiles
-  static constexpr int LDP = N + 8;  // T probability tiles
-  static constexpr int LDO = D + 4;  // f32 accumulators
-  static constexpr size_t tile_t(int rows) { return r128(rows * LDT * sizeof(T)); }
-  static constexpr size_t tile_s(int rows) { return r128(rows * LDS * sizeof(float)); }
-  static constexpr size_t tile_p(int rows) { return r128(rows * LDP * sizeof(T)); }
-  static constexpr size_t tile_o(int rows) { return r128(rows * LDO * sizeof(float)); }
-  static constexpr size_t vec(int n) { return r128(n * 4); }
-};
-
-// The block's max query position (rows past sq excluded) and the min key
-// position of each of the nk KV tiles of `tile` rows (keys past sk
-// excluded; INT_MAX for none) into kmin: each computed once per block by
-// warp reductions. `red` holds one int per warp. Ends with __syncthreads.
-template <int ROWS>
-__device__ int block_positions(const int* qpos, int q0, int sq, const int* kpos, int sk,
-                               int tile, int* red, int* kmin) {
+// Positions reduced once per block, by warp reductions. The block owns
+// entries [r0, r0 + ROWS) of `own` (those at or past n_own excluded); the
+// other side streams in tiles of `tile` entries of `other` (those at or
+// past n_other excluded). A block of queries (OWN_QUERIES) gets its max
+// query position back and each key tile's min into per_tile (INT_MAX for
+// none); a block of keys gets its min key position and each query tile's
+// max (INT_MIN for none). A tile lies wholly above the diagonal when its
+// keys' min exceeds its queries' max. `red` holds one int per warp. Ends
+// with __syncthreads.
+template <int ROWS, bool OWN_QUERIES>
+__device__ int block_positions(const int* own, int r0, int n_own, const int* other,
+                               int n_other, int tile, int* red, int* per_tile) {
+  constexpr int kOwnNone = OWN_QUERIES ? INT_MIN : INT_MAX;
+  constexpr int kTileNone = OWN_QUERIES ? INT_MAX : INT_MIN;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  int v = INT_MIN;
+  int v = kOwnNone;
   for (int i = threadIdx.x; i < ROWS; i += blockDim.x) {
-    if (q0 + i < sq) v = max(v, qpos[q0 + i]);
+    if (r0 + i < n_own) v = OWN_QUERIES ? max(v, own[r0 + i]) : min(v, own[r0 + i]);
   }
-  v = __reduce_max_sync(0xffffffffu, v);
+  v = OWN_QUERIES ? __reduce_max_sync(0xffffffffu, v) : __reduce_min_sync(0xffffffffu, v);
   if (lane == 0) red[warp] = v;
-  const int nk = (sk + tile - 1) / tile;
-  for (int t = warp; t < nk; t += nwarps) {
-    int m = INT_MAX;
-    for (int c = t * tile + lane; c < min(sk, (t + 1) * tile); c += 32) m = min(m, kpos[c]);
-    m = __reduce_min_sync(0xffffffffu, m);
-    if (lane == 0) kmin[t] = m;
+  const int nt = (n_other + tile - 1) / tile;
+  for (int t = warp; t < nt; t += nwarps) {
+    int m = kTileNone;
+    for (int c = t * tile + lane; c < min(n_other, (t + 1) * tile); c += 32) {
+      m = OWN_QUERIES ? min(m, other[c]) : max(m, other[c]);
+    }
+    m = OWN_QUERIES ? __reduce_min_sync(0xffffffffu, m) : __reduce_max_sync(0xffffffffu, m);
+    if (lane == 0) per_tile[t] = m;
   }
   __syncthreads();
-  int qmax = INT_MIN;
-  for (int w = 0; w < nwarps; ++w) qmax = max(qmax, red[w]);
-  return qmax;
+  int r = kOwnNone;
+  for (int w = 0; w < nwarps; ++w) r = OWN_QUERIES ? max(r, red[w]) : min(r, red[w]);
+  return r;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward: wgmma, register accumulators, cp.async ring.
-
-// K/V ring depth: tiles j+1 .. j+kFwdStages-1 load while tile j computes.
-constexpr int kFwdStages = 2;
-// Keys per KV tile of the bf16 forward: wgmma's N for S, its K for P.V.
-constexpr int kFwdBlockN = 128;
+// The bf16 kernels' pieces: cp.async, wgmma, descriptors, fragments.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -327,6 +263,13 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(const void* ptr, uint32_t lb
   return static_cast<uint64_t>((smem_u32(ptr) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (1ull << 62);
+}
+
+// What to add to a K-major descriptor of a tile of `rows` rows for step kk
+// of 16 columns: the step starts in column block kk / 4, 32 bytes further
+// per step inside it (in the descriptor's 16-byte units).
+__device__ __forceinline__ uint64_t k_step(int rows, int kk) {
+  return ((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4;
 }
 
 // d[0, 32) (+)= A . B over one k16 step; A and B from shared memory, both
@@ -407,6 +350,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// The first form at N columns: S = Q.K^T and the like.
 template <int N>
 __device__ __forceinline__ void wgmma_ss_qk(float (&d)[N / 2], uint64_t a, uint64_t b,
                                             int accumulate) {
@@ -417,6 +361,7 @@ __device__ __forceinline__ void wgmma_ss_qk(float (&d)[N / 2], uint64_t a, uint6
   }
 }
 
+// The second form at D = head_dim columns: O += P.V and the like.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -432,14 +377,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two neighbouring gradient elements, cast once, to bf16 or f32.
+__device__ __forceinline__ void store_pair(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
 // Rows [row0, row0 + ROWS) of one head (row stride `row_stride`, D bf16
 // each) into wgmma's 128-byte swizzle layout: D / 64 column blocks of
 // ROWS x 128 bytes, block b at byte b * ROWS * 128, row r at r * 128 in
 // it, and its 16-byte chunk c at ((c ^ (r % 8)) * 16). dst is 1024-byte
 // aligned. Eight lanes copy one row's 128 bytes, so a warp reads 4 whole
 // lines and writes 4 rows without bank conflicts. Rows at or past nrows
-// are zero-filled. K-major this is the Q and K operand (SBO 1024 bytes);
-// read MN-major it is V's (LBO ROWS * 128, SBO 1024).
+// are zero-filled. K-major this is the first form's A and B operand (SBO
+// 1024 bytes); read MN-major it is the second form's B (LBO ROWS * 128,
+// SBO 1024).
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
                                                 long long row_stride, int row0, int nrows) {
@@ -457,40 +411,43 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
   }
 }
 
-__host__ __device__ constexpr size_t r1024(size_t bytes) {
-  return (bytes + 1023) / 1024 * 1024;
+// The first byte of the dynamic shared memory that is 1024-byte aligned,
+// as the swizzle needs.
+__device__ __forceinline__ char* smem_1024(char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// Q, then the ring's stages (K, V, key positions), every tile on a
-// 1024-byte boundary as the swizzle needs; 1024 bytes of slack to align
-// the dynamic shared memory itself.
-template <int D, int WG>
-struct FwdWgmmaSmem {
+// ---------------------------------------------------------------------------
+// bf16 forward.
+
+// Shared memory of a block that owns 64 * WG query rows: OWN tiles of
+// them (Q; Q and dO), then the ring's stages (K, V and the key positions
+// of N-key tiles), every tile on a 1024-byte boundary as the swizzle
+// needs; 1024 bytes of slack to align the dynamic shared memory itself.
+template <int D, int WG, int N, int OWN>
+struct QueryBlockSmem {
   static constexpr int kRowsQ = 64 * WG;
   static constexpr size_t q = r1024(kRowsQ * D * sizeof(bf16));
-  static constexpr size_t kv = r1024(kFwdBlockN * D * sizeof(bf16));
-  static constexpr size_t stage = r1024(2 * kv + kFwdBlockN * sizeof(int));
-  static constexpr size_t fixed = 1024 + q + kFwdStages * stage + r128(32 * sizeof(int));
-  static size_t bytes(int sk) {
-    return fixed + r128(((sk + kFwdBlockN - 1) / kFwdBlockN) * sizeof(int));
-  }
+  static constexpr size_t kv = r1024(N * D * sizeof(bf16));
+  static constexpr size_t stage = r1024(2 * kv + N * sizeof(int));
+  static constexpr size_t fixed = 1024 + OWN * q + kStages * stage + r128(32 * sizeof(int));
+  static size_t bytes(int sk) { return fixed + r128(((sk + N - 1) / N) * sizeof(int)); }
 };
 
-// One block of WG warpgroups per (64 * WG query rows, head, batch); warpgroup
-// w owns rows [64 w, 64 w + 64) of the tile, warp x of it rows 16 x + g and
-// 16 x + g + 8 with g = lane / 4. Thread (g, c = lane % 4) holds columns
-// 8 j + 2 c and 8 j + 2 c + 1 of both rows in every accumulator (wgmma's
-// f32 layout): s[4 j + 2 i + e] and o[4 j + 2 i + e] are row i, column
-// 8 j + 2 c + e.
+template <int D, int WG>
+using FwdWgmmaSmem = QueryBlockSmem<D, WG, kFwdBlockN, 1>;
+
+// One block of WG warpgroups per (64 * WG query rows, head, batch);
+// warpgroup w owns rows [64 w, 64 w + 64) of the tile.
 template <int D, int WG>
 __global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const FlashParams p) {
   using L = FwdWgmmaSmem<D, WG>;
   constexpr int NT = 128 * WG;
   constexpr int N = kFwdBlockN;
   extern __shared__ __align__(128) char smem_raw[];
-  SmemAlloc sm{smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023)};
+  SmemAlloc sm{smem_1024(smem_raw)};
   bf16* sQ = sm.take<bf16>(L::kRowsQ * D);
-  char* sRing = sm.take<char>(kFwdStages * L::stage);
+  char* sRing = sm.take<char>(kStages * L::stage);
   int* sRed = sm.take<int>(32);
   int* sKmin = sm.take<int>((p.sk + N - 1) / N);
 
@@ -522,7 +479,8 @@ __global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const Flas
   };
 
   load_rows_async<L::kRowsQ, D, NT>(sQ, q, p.q_ss, q0, p.sq);
-  const int qmax = block_positions<L::kRowsQ>(qpos, q0, p.sq, kpos, p.sk, N, sRed, sKmin);
+  const int qmax =
+      block_positions<L::kRowsQ, true>(qpos, q0, p.sq, kpos, p.sk, N, sRed, sKmin);
   const int nk = (p.sk + N - 1) / N;
   // The next tile at or after t that is not wholly above the diagonal
   // (block-uniform: every thread reads the same kmin).
@@ -535,7 +493,7 @@ __global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const Flas
   int t = next_live(0);
   int fetch = t;  // the next live tile to load
 #pragma unroll
-  for (int st = 0; st < kFwdStages - 1; ++st) {
+  for (int st = 0; st < kStages - 1; ++st) {
     if (fetch < nk) {
       load_stage(st, fetch);
       fetch = next_live(fetch + 1);
@@ -555,17 +513,15 @@ __global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const Flas
   float m[2] = {kNegInf, kNegInf};  // running max, log2 units, as the quad agrees on it
   float l[2] = {0.f, 0.f};          // running sum of this thread's columns, f32
   const float scale_log2 = p.scale * kLog2e;
-  // Q: this warpgroup's 64 rows, K-major. Step kk of 16 columns starts in
-  // column block kk / 4, 32 bytes further per step inside it.
+  // Q: this warpgroup's 64 rows, K-major.
   const uint64_t q_desc = smem_desc_sw128(sQ + (warp >> 2) * 64 * 64, 16, 1024);
-  auto k_step = [](int rows, int kk) { return ((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4; };
 
   for (int it = 0; t < nk; ++it) {
-    const int st = it % kFwdStages;
-    cp_async_wait_for_wgmma<kFwdStages - 2>();
+    const int st = it % kStages;
+    cp_async_wait_for_wgmma<kStages - 2>();
     __syncthreads();  // tile t has landed for all; the stage of tile t - 1 is free again
     if (fetch < nk) {
-      load_stage((it + kFwdStages - 1) % kFwdStages, fetch);
+      load_stage((it + kStages - 1) % kStages, fetch);
       fetch = next_live(fetch + 1);
     }
     cp_async_commit();
@@ -672,37 +628,489 @@ __global__ void __launch_bounds__(128 * WG, 1) flash_fwd_wgmma_kernel(const Flas
     const long long at = ((long long)bb * p.sq + row) * p.h + hh;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(out + at * D + 8 * j + c2) =
-          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      store_pair(out + at * D + 8 * j + c2, o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     }
     if ((lane & 3) == 0) p.lse_out[at] = empty ? kNegInf : m[i] * kLn2 + logf(ls);
   }
 }
 
 // ---------------------------------------------------------------------------
-// f32 forward: the first design's FMA strips, for correctness.
+// bf16 dq.
+
+template <int D, int WG>
+using DqWgmmaSmem = QueryBlockSmem<D, WG, kDqBlockN, 2>;
+
+// One block of WG warpgroups per (64 * WG query rows, head, batch), as the
+// forward. Per KV tile: S = Q.K^T and dP = dO.V^T (first form), then
+// dQ += dS.K (second form, K read MN-major). lse and delta of the thread's
+// two rows sit in registers for the whole loop.
+template <int D, int WG, typename OutT>
+__global__ void __launch_bounds__(128 * WG, 1) flash_bwd_dq_wgmma_kernel(const FlashParams p) {
+  using L = DqWgmmaSmem<D, WG>;
+  constexpr int NT = 128 * WG;
+  constexpr int N = kDqBlockN;
+  extern __shared__ __align__(128) char smem_raw[];
+  SmemAlloc sm{smem_1024(smem_raw)};
+  bf16* sQ = sm.take<bf16>(L::kRowsQ * D);
+  bf16* sDO = sm.take<bf16>(L::kRowsQ * D);
+  char* sRing = sm.take<char>(kStages * L::stage);
+  int* sRed = sm.take<int>(32);
+  int* sKmin = sm.take<int>((p.sk + N - 1) / N);
+
+  const int tile = gridDim.z - 1 - blockIdx.z;  // longest causal rows first, all heads
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int kvh = hh / (p.h / p.kvh);
+  const int q0 = tile * L::kRowsQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_in = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);  // row i = 0; i = 1 is + 8
+  const int c2 = 2 * (lane & 3);
+
+  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const int* qpos = p.qpos + (long long)bb * p.sq;
+  const int* kpos = p.kpos + (long long)bb * p.sk;
+
+  // Tile t's K, V and key positions into ring stage st, as one copy group;
+  // keys past sk take position INT_MAX, which masks them.
+  auto load_stage = [&](int st, int t) {
+    char* base = sRing + st * L::stage;
+    const int k0 = t * N;
+    load_rows_async<N, D, NT>(reinterpret_cast<bf16*>(base), k, p.k_ss, k0, p.sk);
+    load_rows_async<N, D, NT>(reinterpret_cast<bf16*>(base + L::kv), v, p.v_ss, k0, p.sk);
+    int* pos = reinterpret_cast<int*>(base + 2 * L::kv);
+    const int c = threadIdx.x;
+    if (c < N) {
+      if (k0 + c < p.sk) {
+        cp_async_4(pos + c, kpos + k0 + c, true);
+      } else {
+        pos[c] = INT_MAX;
+      }
+    }
+  };
+
+  load_rows_async<L::kRowsQ, D, NT>(sQ, q, p.q_ss, q0, p.sq);
+  load_rows_async<L::kRowsQ, D, NT>(sDO, dout, p.do_ss, q0, p.sq);
+  const int qmax =
+      block_positions<L::kRowsQ, true>(qpos, q0, p.sq, kpos, p.sk, N, sRed, sKmin);
+  const int nk = (p.sk + N - 1) / N;
+  auto next_live = [&](int t) {
+    while (t < nk && sKmin[t] > qmax) ++t;
+    return t;
+  };
+  int t = next_live(0);
+  int fetch = t;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (fetch < nk) {
+      load_stage(st, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+
+  // The thread's two rows: position (INT_MIN past sq), lse in log2 units
+  // and delta (0 past sq).
+  int qp[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_in + 8 * i;
+    const bool in = row < p.sq;
+    const long long at = ((long long)bb * p.sq + (in ? row : 0)) * p.h + hh;
+    qp[i] = in ? qpos[row] : INT_MIN;
+    lse2[i] = in ? p.lse[at] * kLog2e : 0.f;
+    dl[i] = in ? p.delta[at] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+  const uint64_t q_desc = smem_desc_sw128(sQ + (warp >> 2) * 64 * 64, 16, 1024);
+  const uint64_t do_desc = smem_desc_sw128(sDO + (warp >> 2) * 64 * 64, 16, 1024);
+
+  for (int it = 0; t < nk; ++it) {
+    const int st = it % kStages;
+    cp_async_wait_for_wgmma<kStages - 2>();
+    __syncthreads();  // tile t has landed for all; the stage of tile t - 1 is free again
+    if (fetch < nk) {
+      load_stage((it + kStages - 1) % kStages, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+
+    const char* base = sRing + st * L::stage;
+    const bf16* sK = reinterpret_cast<const bf16*>(base);
+    const bf16* sV = reinterpret_cast<const bf16*>(base + L::kv);
+    const int* sKpos = reinterpret_cast<const int*>(base + 2 * L::kv);
+
+    // S = Q.K^T and dP = dO.V^T: D / 16 steps each along head_dim, every
+    // operand K-major.
+    float s[N / 2], dp[N / 2];
+    const uint64_t k_desc = smem_desc_sw128(sK, 16, 1024);
+    const uint64_t v_desc = smem_desc_sw128(sV, 16, 1024);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_qk<N>(s, q_desc + k_step(L::kRowsQ, kk), k_desc + k_step(N, kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_qk<N>(dp, do_desc + k_step(L::kRowsQ, kk), v_desc + k_step(N, kk), kk);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p from the global lse, exactly 0 where masked; ds = p (dP - delta)
+    // scale in f32 from the unrounded p, rounded to bf16 in the A-fragment
+    // order: dS.K step kk takes ds[4 kk, 4 kk + 4).
+    uint32_t ds[N / 4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int2 kp = *reinterpret_cast<const int2*>(sKpos + 8 * j + c2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int a = 4 * j + 2 * i;
+        const bool m0 = qp[i] >= kp.x, m1 = qp[i] >= kp.y;
+        const float p0 = m0 ? exp2f(s[a] * scale_log2 - lse2[i]) : 0.f;
+        const float p1 = m1 ? exp2f(s[a + 1] * scale_log2 - lse2[i]) : 0.f;
+        const float d0 = dp[a] - dl[i], d1 = dp[a + 1] - dl[i];
+        ds[2 * j + i] = pack_bf16(p0 * d0 * p.scale, p1 * d1 * p.scale);
+      }
+    }
+
+    // dQ += dS.K: N / 16 steps along the KV tile, K read MN-major (the same
+    // shared tile as for S, under a second descriptor).
+    fence_regs(dq);
+    fence_regs(ds);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+      wgmma_rs_pv<D>(dq, a, smem_desc_sw128(sK + kk * 16 * 64, N * 128, 1024));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(dq);
+    t = next_live(t + 1);
+  }
+  cp_async_wait_for_wgmma<0>();  // no copy outlives the block
+
+  OutT* out = static_cast<OutT*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_in + 8 * i;
+    if (row >= p.sq) continue;
+    const long long at = ((long long)bb * p.sq + row) * p.h + hh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store_pair(out + at * D + 8 * j + c2, dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dk/dv.
+
+// K and V, then the ring's stages (Q, dO, and the tile's query positions,
+// lse and delta), every tile on a 1024-byte boundary.
+template <int D, int WG>
+struct DkvWgmmaSmem {
+  static constexpr int kRowsK = 64 * WG;
+  static constexpr size_t kv = r1024(kRowsK * D * sizeof(bf16));
+  static constexpr size_t q = r1024(kDkvBlockQ * D * sizeof(bf16));
+  static constexpr size_t row = r128(kDkvBlockQ * sizeof(int));  // one int or f32 per query
+  static constexpr size_t stage = r1024(2 * q + 3 * row);
+  static constexpr size_t fixed = 1024 + 2 * kv + kStages * stage + r128(32 * sizeof(int));
+  static size_t bytes(int sq) {
+    return fixed + r128(((sq + kDkvBlockQ - 1) / kDkvBlockQ) * sizeof(int));
+  }
+};
+
+// One block of WG warpgroups per (64 * WG key rows, KV head, batch);
+// warpgroup w owns keys [64 w, 64 w + 64) of the tile, so every
+// accumulator is transposed: rows are keys, columns queries. Per query
+// tile: S^T = K.Q^T and dP^T = V.dO^T (first form), then dV += P^T.dO and
+// dK += dS^T.Q (second form, dO and Q read MN-major). The ring streams
+// (GQA head, query tile) pairs of the whole group.
+template <int D, int WG, typename OutT>
+__global__ void __launch_bounds__(128 * WG, 1) flash_bwd_dkv_wgmma_kernel(const FlashParams p) {
+  using L = DkvWgmmaSmem<D, WG>;
+  constexpr int NT = 128 * WG;
+  constexpr int BQ = kDkvBlockQ;
+  extern __shared__ __align__(128) char smem_raw[];
+  SmemAlloc sm{smem_1024(smem_raw)};
+  bf16* sK = sm.take<bf16>(L::kRowsK * D);
+  bf16* sV = sm.take<bf16>(L::kRowsK * D);
+  char* sRing = sm.take<char>(kStages * L::stage);
+  int* sRed = sm.take<int>(32);
+  const int nq = (p.sq + BQ - 1) / BQ;
+  int* sQmax = sm.take<int>(nq);
+
+  // Low key tiles see the most queries under a causal mask: they launch
+  // first, over all heads.
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * L::kRowsK;
+  const int group = p.h / p.kvh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_in = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);  // row i = 0; i = 1 is + 8
+  const int c2 = 2 * (lane & 3);
+
+  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const int* qpos = p.qpos + (long long)bb * p.sq;
+  const int* kpos = p.kpos + (long long)bb * p.sk;
+  // The stream: item g * nq + qt is query tile qt of head g of the group.
+  const int n_items = group * nq;
+
+  // Item's Q, dO, query positions, lse and delta into ring stage st, as one
+  // copy group; queries past sq take position INT_MIN, which masks them,
+  // and lse and delta 0.
+  auto load_stage = [&](int st, int item) {
+    char* base = sRing + st * L::stage;
+    const int hh = kvh * group + item / nq;
+    const int q0 = (item % nq) * BQ;
+    load_rows_async<BQ, D, NT>(reinterpret_cast<bf16*>(base),
+                               static_cast<const bf16*>(p.q) + bb * p.q_sb + hh * p.q_sh,
+                               p.q_ss, q0, p.sq);
+    load_rows_async<BQ, D, NT>(reinterpret_cast<bf16*>(base + L::q),
+                               static_cast<const bf16*>(p.dout) + bb * p.do_sb + hh * p.do_sh,
+                               p.do_ss, q0, p.sq);
+    int* pos = reinterpret_cast<int*>(base + 2 * L::q);
+    float* lse = reinterpret_cast<float*>(base + 2 * L::q + L::row);
+    float* delta = reinterpret_cast<float*>(base + 2 * L::q + 2 * L::row);
+    const int c = threadIdx.x;
+    if (c < BQ) {
+      const bool in = q0 + c < p.sq;
+      const long long at = ((long long)bb * p.sq + (in ? q0 + c : 0)) * p.h + hh;
+      if (in) {
+        cp_async_4(pos + c, qpos + q0 + c, true);
+      } else {
+        pos[c] = INT_MIN;
+      }
+      cp_async_4(lse + c, p.lse + at, in);
+      cp_async_4(delta + c, p.delta + at, in);
+    }
+  };
+
+  load_rows_async<L::kRowsK, D, NT>(sK, k, p.k_ss, k0, p.sk);
+  load_rows_async<L::kRowsK, D, NT>(sV, v, p.v_ss, k0, p.sk);
+  const int kmin =
+      block_positions<L::kRowsK, false>(kpos, k0, p.sk, qpos, p.sq, BQ, sRed, sQmax);
+  // The next item at or after `item` whose query tile is not wholly
+  // before the block's keys (block-uniform). Positions are per batch, so
+  // one tile list serves every head of the group.
+  auto next_live = [&](int item) {
+    while (item < n_items && sQmax[item % nq] < kmin) ++item;
+    return item;
+  };
+  int item = next_live(0);
+  int fetch = item;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (fetch < n_items) {
+      load_stage(st, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+
+  // The thread's two keys' positions (INT_MAX past sk).
+  int kp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + row_in + 8 * i;
+    kp[i] = row < p.sk ? kpos[row] : INT_MAX;
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const uint64_t k_desc = smem_desc_sw128(sK + (warp >> 2) * 64 * 64, 16, 1024);
+  const uint64_t v_desc = smem_desc_sw128(sV + (warp >> 2) * 64 * 64, 16, 1024);
+
+  for (int it = 0; item < n_items; ++it) {
+    const int st = it % kStages;
+    cp_async_wait_for_wgmma<kStages - 2>();
+    __syncthreads();  // this item has landed for all; the previous one's stage is free again
+    if (fetch < n_items) {
+      load_stage((it + kStages - 1) % kStages, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+
+    const char* base = sRing + st * L::stage;
+    const bf16* sQ = reinterpret_cast<const bf16*>(base);
+    const bf16* sDO = reinterpret_cast<const bf16*>(base + L::q);
+    const int* sQpos = reinterpret_cast<const int*>(base + 2 * L::q);
+    const float* sLse = reinterpret_cast<const float*>(base + 2 * L::q + L::row);
+    const float* sDelta = reinterpret_cast<const float*>(base + 2 * L::q + 2 * L::row);
+
+    // S^T = K.Q^T and dP^T = V.dO^T: D / 16 steps each along head_dim,
+    // every operand K-major.
+    float sT[BQ / 2], dpT[BQ / 2];
+    const uint64_t q_desc = smem_desc_sw128(sQ, 16, 1024);
+    const uint64_t do_desc = smem_desc_sw128(sDO, 16, 1024);
+    fence_regs(sT);
+    fence_regs(dpT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_qk<BQ>(sT, k_desc + k_step(L::kRowsK, kk), q_desc + k_step(BQ, kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_qk<BQ>(dpT, v_desc + k_step(L::kRowsK, kk), do_desc + k_step(BQ, kk), kk);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    // p^T from each column's (query's) lse, exactly 0 where masked; ds^T =
+    // p^T (dP^T - delta) scale in f32 from the unrounded p. Both rounded
+    // to bf16 in the A-fragment order: step kk takes [4 kk, 4 kk + 4).
+    uint32_t pT[BQ / 4], dsT[BQ / 4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int2 qp = *reinterpret_cast<const int2*>(sQpos + 8 * j + c2);
+      const float2 lse = *reinterpret_cast<const float2*>(sLse + 8 * j + c2);
+      const float2 dl = *reinterpret_cast<const float2*>(sDelta + 8 * j + c2);
+      const float l0 = lse.x * kLog2e, l1 = lse.y * kLog2e;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int a = 4 * j + 2 * i;
+        const bool m0 = qp.x >= kp[i], m1 = qp.y >= kp[i];
+        const float p0 = m0 ? exp2f(sT[a] * scale_log2 - l0) : 0.f;
+        const float p1 = m1 ? exp2f(sT[a + 1] * scale_log2 - l1) : 0.f;
+        const float d0 = dpT[a] - dl.x, d1 = dpT[a + 1] - dl.y;
+        pT[2 * j + i] = pack_bf16(p0, p1);
+        dsT[2 * j + i] = pack_bf16(p0 * d0 * p.scale, p1 * d1 * p.scale);
+      }
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q: BQ / 16 steps along the query tile, dO
+    // and Q read MN-major (the same shared tiles as above, under second
+    // descriptors).
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pT);
+    fence_regs(dsT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t a[4] = {pT[4 * kk], pT[4 * kk + 1], pT[4 * kk + 2], pT[4 * kk + 3]};
+      wgmma_rs_pv<D>(dv, a, smem_desc_sw128(sDO + kk * 16 * 64, BQ * 128, 1024));
+      const uint32_t b[4] = {dsT[4 * kk], dsT[4 * kk + 1], dsT[4 * kk + 2], dsT[4 * kk + 3]};
+      wgmma_rs_pv<D>(dk, b, smem_desc_sw128(sQ + kk * 16 * 64, BQ * 128, 1024));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(dv);
+    fence_regs(dk);
+    item = next_live(item + 1);
+  }
+  cp_async_wait_for_wgmma<0>();  // no copy outlives the block
+
+  OutT* dk_out = static_cast<OutT*>(p.dk);
+  OutT* dv_out = static_cast<OutT*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + row_in + 8 * i;
+    if (row >= p.sk) continue;
+    const long long at = ((long long)bb * p.sk + row) * p.kvh + kvh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store_pair(dk_out + at * D + 8 * j + c2, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      store_pair(dv_out + at * D + 8 * j + c2, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the first design's FMA strips, for correctness.
+
+// Rows [row0, row0 + ROWS) of one head (row stride `row_stride`) into a
+// padded shared tile, 16 bytes per load; rows at or past `nrows` are zero.
+template <int ROWS, int D>
+__device__ void load_tile(float* dst, int ld, const float* src, long long row_stride, int row0,
+                          int nrows) {
+  constexpr int kVecPerRow = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * 4;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < nrows) {
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+// One warp: C[16][N] = scale * A[16][D] . B[N][D]^T (A, B row-major).
+template <int N, int D>
+__device__ void strip_abt(const float* A, int lda, const float* B, int ldb, float* C, int ldc,
+                          float scale) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < 16 * N; i += 32) {
+    const int r = i / N, col = i % N;
+    float acc = 0.f;
+    for (int k = 0; k < D; ++k) acc += A[r * lda + k] * B[col * ldb + k];
+    C[r * ldc + col] = acc * scale;
+  }
+  __syncwarp();
+}
+
+// One warp: C[16][D] += P[16][N] . V[N][D] (P, V row-major).
+template <int N, int D>
+__device__ void strip_pv(const float* P, int ldp, const float* V, int ldv, float* C, int ldc) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < 16 * D; i += 32) {
+    const int r = i / D, col = i % D;
+    float acc = C[r * ldc + col];
+    for (int k = 0; k < N; ++k) acc += P[r * ldp + k] * V[k * ldv + col];
+    C[r * ldc + col] = acc;
+  }
+  __syncwarp();
+}
+
+// Padded leading dimensions; the pad staggers banks.
+template <int D, int N>
+struct Layout {
+  static constexpr int LDT = D + 8;  // tiles of head_dim columns
+  static constexpr int LDS = N + 4;  // score tiles
+  static constexpr int LDP = N + 8;  // probability tiles
+  static constexpr int LDO = D + 4;  // accumulators
+  static constexpr size_t tile_t(int rows) { return r128(rows * LDT * sizeof(float)); }
+  static constexpr size_t tile_s(int rows) { return r128(rows * LDS * sizeof(float)); }
+  static constexpr size_t tile_p(int rows) { return r128(rows * LDP * sizeof(float)); }
+  static constexpr size_t tile_o(int rows) { return r128(rows * LDO * sizeof(float)); }
+  static constexpr size_t vec(int n) { return r128(n * 4); }
+};
 
 template <int D>
-struct FwdSmem : Layout<float, D, kBlockK> {
-  using L = Layout<float, D, kBlockK>;
+struct FwdSmem : Layout<D, kBlockK> {
+  using L = Layout<D, kBlockK>;
   static constexpr size_t fixed = L::tile_t(kRows) + 2 * L::tile_t(kBlockK) +
-                                  L::tile_s(kRows) + L::tile_p(kRows) +
-                                  L::tile_o(kRows) + 4 * L::vec(kRows) +
-                                  L::vec(kBlockK) + L::vec(32);
+                                  L::tile_s(kRows) + L::tile_p(kRows) + L::tile_o(kRows) +
+                                  4 * L::vec(kRows) + L::vec(kBlockK) + L::vec(32);
   static size_t bytes(int sk) { return fixed + L::vec((sk + kBlockK - 1) / kBlockK); }
 };
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashParams p) {
-  using T = float;
   using L = FwdSmem<D>;
   extern __shared__ __align__(128) char smem_raw[];
   SmemAlloc sm{smem_raw};
-  T* sQ = sm.take<T>(kRows * L::LDT);
-  T* sK = sm.take<T>(kBlockK * L::LDT);
-  T* sV = sm.take<T>(kBlockK * L::LDT);
+  float* sQ = sm.take<float>(kRows * L::LDT);
+  float* sK = sm.take<float>(kBlockK * L::LDT);
+  float* sV = sm.take<float>(kBlockK * L::LDT);
   float* sS = sm.take<float>(kRows * L::LDS);
-  T* sP = sm.take<T>(kRows * L::LDP);
+  float* sP = sm.take<float>(kRows * L::LDP);
   float* sO = sm.take<float>(kRows * L::LDO);
   float* sM = sm.take<float>(kRows);
   float* sL = sm.take<float>(kRows);
@@ -718,20 +1126,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
   const int q0 = tile * kRows;
   const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
 
-  const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
   const int* qpos = p.qpos + (long long)bb * p.sq;
   const int* kpos = p.kpos + (long long)bb * p.sk;
 
-  load_tile<T, kRows, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
+  load_tile<kRows, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
   for (int i = tid; i < kRows; i += kThreads) {
     sQpos[i] = q0 + i < p.sq ? qpos[q0 + i] : INT_MIN;
     sM[i] = kNegInf;
     sL[i] = 0.f;
   }
   for (int i = tid; i < kRows * L::LDO; i += kThreads) sO[i] = 0.f;
-  const int qmax = block_positions<kRows>(qpos, q0, p.sq, kpos, p.sk, kBlockK, sRed, sKmin);
+  const int qmax =
+      block_positions<kRows, true>(qpos, q0, p.sq, kpos, p.sk, kBlockK, sRed, sKmin);
 
   const int nk = (p.sk + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < nk; ++kt) {
@@ -741,12 +1150,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
     for (int i = tid; i < kBlockK; i += kThreads) {
       sKpos[i] = k0 + i < p.sk ? kpos[k0 + i] : INT_MAX;
     }
-    load_tile<T, kBlockK, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
-    load_tile<T, kBlockK, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
+    load_tile<kBlockK, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
+    load_tile<kBlockK, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
     __syncthreads();
 
-    strip_abt<T, kBlockK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT,
-                             sS + r0 * L::LDS, L::LDS, p.scale);
+    strip_abt<kBlockK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS, L::LDS,
+                          p.scale);
     for (int r = r0; r < r0 + 16; ++r) {
       const int qp = sQpos[r];
       float s[kBlockK / 32];
@@ -783,11 +1192,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
       sO[r * L::LDO + i % D] *= sCorr[r];
     }
     __syncwarp();
-    strip_pv<T, kBlockK, D>(sP + r0 * L::LDP, L::LDP, sV, L::LDT,
-                            sO + r0 * L::LDO, L::LDO);
+    strip_pv<kBlockK, D>(sP + r0 * L::LDP, L::LDP, sV, L::LDT, sO + r0 * L::LDO, L::LDO);
   }
 
-  T* out = static_cast<T*>(p.out);
+  float* out = static_cast<float*>(p.out);
   for (int r = r0; r < r0 + 16; ++r) {
     const int row = q0 + r;
     if (row >= p.sq) break;
@@ -801,27 +1209,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
   }
 }
 
-template <typename T, int D>
-struct DqSmem : Layout<T, D, kBlockK> {
-  using L = Layout<T, D, kBlockK>;
+template <int D>
+struct DqSmem : Layout<D, kBlockK> {
+  using L = Layout<D, kBlockK>;
   static constexpr size_t bytes = 2 * L::tile_t(kRows) + 2 * L::tile_t(kBlockK) +
                                   2 * L::tile_s(kRows) + L::tile_p(kRows) +
-                                  L::tile_o(kRows) + 3 * L::vec(kRows) +
-                                  L::vec(kBlockK);
+                                  L::tile_o(kRows) + 3 * L::vec(kRows) + L::vec(kBlockK);
 };
 
-template <typename T, typename OutT, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParams p) {
-  using L = DqSmem<T, D>;
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const FlashParams p) {
+  using L = DqSmem<D>;
   extern __shared__ __align__(128) char smem_raw[];
   SmemAlloc sm{smem_raw};
-  T* sQ = sm.take<T>(kRows * L::LDT);
-  T* sDO = sm.take<T>(kRows * L::LDT);
-  T* sK = sm.take<T>(kBlockK * L::LDT);
-  T* sV = sm.take<T>(kBlockK * L::LDT);
+  float* sQ = sm.take<float>(kRows * L::LDT);
+  float* sDO = sm.take<float>(kRows * L::LDT);
+  float* sK = sm.take<float>(kBlockK * L::LDT);
+  float* sV = sm.take<float>(kBlockK * L::LDT);
   float* sS = sm.take<float>(kRows * L::LDS);
   float* sDP = sm.take<float>(kRows * L::LDS);
-  T* sDS = sm.take<T>(kRows * L::LDP);
+  float* sDS = sm.take<float>(kRows * L::LDP);
   float* sDQ = sm.take<float>(kRows * L::LDO);
   float* sLse = sm.take<float>(kRows);
   float* sDelta = sm.take<float>(kRows);
@@ -834,15 +1241,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
   const int q0 = tile * kRows;
   const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
 
-  const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
-  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const float* dout = static_cast<const float*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
+  const float* k = static_cast<const float*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
   const int* qpos = p.qpos + (long long)bb * p.sq;
   const int* kpos = p.kpos + (long long)bb * p.sk;
 
-  load_tile<T, kRows, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
-  load_tile<T, kRows, D>(sDO, L::LDT, dout, p.do_ss, q0, p.sq);
+  load_tile<kRows, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
+  load_tile<kRows, D>(sDO, L::LDT, dout, p.do_ss, q0, p.sq);
   for (int i = tid; i < kRows; i += kThreads) {
     const bool in = q0 + i < p.sq;
     const long long at = ((long long)bb * p.sq + q0 + i) * p.h + hh;
@@ -866,66 +1273,57 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
     int kmin = INT_MAX;
     for (int i = 0; i < kBlockK; ++i) kmin = min(kmin, sKpos[i]);
     if (kmin > qmax) continue;
-    load_tile<T, kBlockK, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
-    load_tile<T, kBlockK, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
+    load_tile<kBlockK, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
+    load_tile<kBlockK, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
     __syncthreads();
 
-    strip_abt<T, kBlockK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT,
-                             sS + r0 * L::LDS, L::LDS, p.scale);
-    strip_abt<T, kBlockK, D>(sDO + r0 * L::LDT, L::LDT, sV, L::LDT,
-                             sDP + r0 * L::LDS, L::LDS, 1.f);
+    strip_abt<kBlockK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS, L::LDS,
+                          p.scale);
+    strip_abt<kBlockK, D>(sDO + r0 * L::LDT, L::LDT, sV, L::LDT, sDP + r0 * L::LDS, L::LDS,
+                          1.f);
     for (int i = lane; i < 16 * kBlockK; i += 32) {
       const int r = r0 + i / kBlockK, c = i % kBlockK;
       const bool ok = (k0 + c < p.sk) && sQpos[r] >= sKpos[c];
       const float pr = ok ? expf(sS[r * L::LDS + c] - sLse[r]) : 0.f;
-      const float ds = pr * (sDP[r * L::LDS + c] - sDelta[r]) * p.scale;
-      sDS[r * L::LDP + c] = from_float<T>(ds);
+      sDS[r * L::LDP + c] = pr * (sDP[r * L::LDS + c] - sDelta[r]) * p.scale;
     }
     __syncwarp();
-    strip_pv<T, kBlockK, D>(sDS + r0 * L::LDP, L::LDP, sK, L::LDT,
-                            sDQ + r0 * L::LDO, L::LDO);
+    strip_pv<kBlockK, D>(sDS + r0 * L::LDP, L::LDP, sK, L::LDT, sDQ + r0 * L::LDO, L::LDO);
   }
 
-  OutT* dq = static_cast<OutT*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
   for (int r = r0; r < r0 + 16; ++r) {
     const int row = q0 + r;
     if (row >= p.sq) break;
     const long long at = ((long long)bb * p.sq + row) * p.h + hh;
-    for (int c = lane; c < D; c += 32) dq[at * D + c] = from_float<OutT>(sDQ[r * L::LDO + c]);
+    for (int c = lane; c < D; c += 32) dq[at * D + c] = sDQ[r * L::LDO + c];
   }
 }
 
-// The dk/dv pass walks q tiles of BQ rows: 64 for bf16, 32 for f32 so that
-// the f32 instantiation fits in the 227 KB a block may use.
-template <typename T>
-struct DkvTile {
-  static constexpr int BQ = std::is_same<T, bf16>::value ? 64 : 32;
-};
-
-template <typename T, int D>
-struct DkvSmem : Layout<T, D, DkvTile<T>::BQ> {
-  static constexpr int BQ = DkvTile<T>::BQ;
-  using L = Layout<T, D, BQ>;
+template <int D>
+struct DkvSmem : Layout<D, kDkvBlockQF32> {
+  static constexpr int BQ = kDkvBlockQF32;
+  using L = Layout<D, BQ>;
   static constexpr size_t bytes = 2 * L::tile_t(kRows) + 2 * L::tile_t(BQ) +
                                   2 * L::tile_s(kRows) + 2 * L::tile_p(kRows) +
-                                  2 * L::tile_o(kRows) + 3 * L::vec(BQ) +
-                                  L::vec(kRows);
+                                  2 * L::tile_o(kRows) +
+                                  3 * L::vec(BQ) + L::vec(kRows);
 };
 
-template <typename T, typename OutT, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashParams p) {
-  using L = DkvSmem<T, D>;
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(const FlashParams p) {
+  using L = DkvSmem<D>;
   constexpr int BQ = L::BQ;
   extern __shared__ __align__(128) char smem_raw[];
   SmemAlloc sm{smem_raw};
-  T* sK = sm.take<T>(kRows * L::LDT);
-  T* sV = sm.take<T>(kRows * L::LDT);
-  T* sQ = sm.take<T>(BQ * L::LDT);
-  T* sDO = sm.take<T>(BQ * L::LDT);
+  float* sK = sm.take<float>(kRows * L::LDT);
+  float* sV = sm.take<float>(kRows * L::LDT);
+  float* sQ = sm.take<float>(BQ * L::LDT);
+  float* sDO = sm.take<float>(BQ * L::LDT);
   float* sSt = sm.take<float>(kRows * L::LDS);
   float* sDPt = sm.take<float>(kRows * L::LDS);
-  T* sPt = sm.take<T>(kRows * L::LDP);
-  T* sDSt = sm.take<T>(kRows * L::LDP);
+  float* sPt = sm.take<float>(kRows * L::LDP);
+  float* sDSt = sm.take<float>(kRows * L::LDP);
   float* sDK = sm.take<float>(kRows * L::LDO);
   float* sDV = sm.take<float>(kRows * L::LDO);
   float* sLse = sm.take<float>(BQ);
@@ -940,13 +1338,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   const int group = p.h / p.kvh;
   const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
 
-  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const float* k = static_cast<const float*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
   const int* qpos = p.qpos + (long long)bb * p.sq;
   const int* kpos = p.kpos + (long long)bb * p.sk;
 
-  load_tile<T, kRows, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
-  load_tile<T, kRows, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
+  load_tile<kRows, D>(sK, L::LDT, k, p.k_ss, k0, p.sk);
+  load_tile<kRows, D>(sV, L::LDT, v, p.v_ss, k0, p.sk);
   for (int i = tid; i < kRows; i += kThreads) {
     sKpos[i] = k0 + i < p.sk ? kpos[k0 + i] : INT_MAX;
   }
@@ -962,8 +1360,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   // The GQA group is summed here, so dk/dv are written once per kv head.
   for (int g = 0; g < group; ++g) {
     const int hh = kvh * group + g;
-    const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-    const T* dout = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
+    const float* q = static_cast<const float*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+    const float* dout = static_cast<const float*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
     for (int qt = 0; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
@@ -978,97 +1376,111 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
       int qmax = INT_MIN;
       for (int i = 0; i < BQ; ++i) qmax = max(qmax, sQpos[i]);
       if (qmax < kmin) continue;  // every query is before every key
-      load_tile<T, BQ, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
-      load_tile<T, BQ, D>(sDO, L::LDT, dout, p.do_ss, q0, p.sq);
+      load_tile<BQ, D>(sQ, L::LDT, q, p.q_ss, q0, p.sq);
+      load_tile<BQ, D>(sDO, L::LDT, dout, p.do_ss, q0, p.sq);
       __syncthreads();
 
-      strip_abt<T, BQ, D>(sK + r0 * L::LDT, L::LDT, sQ, L::LDT,
-                          sSt + r0 * L::LDS, L::LDS, p.scale);
-      strip_abt<T, BQ, D>(sV + r0 * L::LDT, L::LDT, sDO, L::LDT,
-                          sDPt + r0 * L::LDS, L::LDS, 1.f);
+      strip_abt<BQ, D>(sK + r0 * L::LDT, L::LDT, sQ, L::LDT, sSt + r0 * L::LDS, L::LDS,
+                       p.scale);
+      strip_abt<BQ, D>(sV + r0 * L::LDT, L::LDT, sDO, L::LDT, sDPt + r0 * L::LDS, L::LDS, 1.f);
       for (int i = lane; i < 16 * BQ; i += 32) {
         const int r = r0 + i / BQ, c = i % BQ;
         const bool ok = (k0 + r < p.sk) && sQpos[c] >= sKpos[r];
         const float pr = ok ? expf(sSt[r * L::LDS + c] - sLse[c]) : 0.f;
-        const float ds = pr * (sDPt[r * L::LDS + c] - sDelta[c]) * p.scale;
-        sPt[r * L::LDP + c] = from_float<T>(pr);
-        sDSt[r * L::LDP + c] = from_float<T>(ds);
+        sPt[r * L::LDP + c] = pr;
+        sDSt[r * L::LDP + c] = pr * (sDPt[r * L::LDS + c] - sDelta[c]) * p.scale;
       }
       __syncwarp();
-      strip_pv<T, BQ, D>(sPt + r0 * L::LDP, L::LDP, sDO, L::LDT,
-                         sDV + r0 * L::LDO, L::LDO);
-      strip_pv<T, BQ, D>(sDSt + r0 * L::LDP, L::LDP, sQ, L::LDT,
-                         sDK + r0 * L::LDO, L::LDO);
+      strip_pv<BQ, D>(sPt + r0 * L::LDP, L::LDP, sDO, L::LDT, sDV + r0 * L::LDO, L::LDO);
+      strip_pv<BQ, D>(sDSt + r0 * L::LDP, L::LDP, sQ, L::LDT, sDK + r0 * L::LDO, L::LDO);
     }
   }
 
-  OutT* dk = static_cast<OutT*>(p.dk);
-  OutT* dv = static_cast<OutT*>(p.dv);
+  float* dk = static_cast<float*>(p.dk);
+  float* dv = static_cast<float*>(p.dv);
   for (int r = r0; r < r0 + 16; ++r) {
     const int row = k0 + r;
     if (row >= p.sk) break;
     const long long at = ((long long)bb * p.sk + row) * p.kvh + kvh;
     for (int c = lane; c < D; c += 32) {
-      dk[at * D + c] = from_float<OutT>(sDK[r * L::LDO + c]);
-      dv[at * D + c] = from_float<OutT>(sDV[r * L::LDO + c]);
+      dk[at * D + c] = sDK[r * L::LDO + c];
+      dv[at * D + c] = sDV[r * L::LDO + c];
     }
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const FlashParams& p,
-           cudaStream_t stream, int threads = kThreads) {
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------------------
+// Launch plans.
+
+// One kernel instance with its grid, threads and dynamic shared memory;
+// fn is null where no instance is built.
+struct Plan {
+  const void* fn;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+// The bf16 backward kernels: dq over (heads, batch, query tiles), longest
+// rows first inside the kernel; dk/dv over (KV heads, batch, key tiles),
+// key tiles ascending so the heaviest blocks start first.
+template <int D, typename OutT>
+Plan bwd_bf16_plan(int kernel, const FlashParams& p) {
+  if (kernel == kDq) {
+    constexpr int WG = kDqWarpgroups;
+    return {(const void*)flash_bwd_dq_wgmma_kernel<D, WG, OutT>,
+            dim3(p.h, p.b, (p.sq + 64 * WG - 1) / (64 * WG)), 128 * WG,
+            DqWgmmaSmem<D, WG>::bytes(p.sk)};
+  }
+  constexpr int WG = kDkvWarpgroups;
+  return {(const void*)flash_bwd_dkv_wgmma_kernel<D, WG, OutT>,
+          dim3(p.kvh, p.b, (p.sk + 64 * WG - 1) / (64 * WG)), 128 * WG,
+          DkvWgmmaSmem<D, WG>::bytes(p.sq)};
+}
+
+template <int D>
+Plan plan_for(int kernel, int dtype, int out_f32, const FlashParams& p) {
+  if (dtype == kBF16) {
+    if (kernel != kFwd) {
+      return out_f32 ? bwd_bf16_plan<D, float>(kernel, p) : bwd_bf16_plan<D, bf16>(kernel, p);
+    }
+    // The forward's grid: heads, batch, then query tiles, so that the
+    // block scheduler takes the heaviest tiles of every head first.
+    constexpr int WG = kFwdWarpgroups;
+    return {(const void*)flash_fwd_wgmma_kernel<D, WG>,
+            dim3(p.h, p.b, (p.sq + 64 * WG - 1) / (64 * WG)), 128 * WG,
+            FwdWgmmaSmem<D, WG>::bytes(p.sk)};
+  }
+  // f32 (gradients always f32): one block of 4 warps per 64-row tile.
+  if (kernel == kFwd) {
+    return {(const void*)flash_fwd_f32_kernel<D>, dim3((p.sq + kRows - 1) / kRows, p.h, p.b),
+            kThreads, FwdSmem<D>::bytes(p.sk)};
+  }
+  if (kernel == kDq) {
+    return {(const void*)flash_bwd_dq_f32_kernel<D>, dim3((p.sq + kRows - 1) / kRows, p.h, p.b),
+            kThreads, DqSmem<D>::bytes};
+  }
+  return {(const void*)flash_bwd_dkv_f32_kernel<D>, dim3((p.sk + kRows - 1) / kRows, p.kvh, p.b),
+          kThreads, DkvSmem<D>::bytes};
+}
+
+Plan plan(int kernel, int dtype, int out_f32, const FlashParams& p) {
+  const bool known =
+      (dtype == kBF16 || dtype == kF32) && (kernel == kFwd || kernel == kDq || kernel == kDkv);
+  if (known && p.d == 64) return plan_for<64>(kernel, dtype, out_f32, p);
+  if (known && p.d == 128) return plan_for<128>(kernel, dtype, out_f32, p);
+  return {nullptr, dim3(), 0, 0};
+}
+
+int run(const Plan& k, const FlashParams& p, void* stream) {
+  if (!k.fn) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  void* args[] = {const_cast<FlashParams*>(&p)};
+  cudaLaunchKernel(k.fn, k.grid, dim3(k.threads), args, k.smem,
+                   static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
-}
-
-// Blocks of `kernel` resident per SM at `threads` and `smem`, and the
-// registers and local memory (spills and stack) of each of its threads.
-template <typename Kernel>
-int resources(Kernel kernel, int threads, size_t smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, (const void*)kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[1] = threads;
-  out[2] = attr.numRegs;
-  out[3] = (int)attr.localSizeBytes;
-  return 0;
-}
-
-// The bf16 forward's grid: heads, batch, then query tiles, so that the
-// block scheduler takes the heaviest tiles of every head first.
-template <int D>
-int fwd_bf16(const FlashParams& p, cudaStream_t s) {
-  constexpr int WG = kFwdWarpgroups;
-  dim3 grid(p.h, p.b, (p.sq + 64 * WG - 1) / (64 * WG));
-  return launch(flash_fwd_wgmma_kernel<D, WG>, grid, FwdWgmmaSmem<D, WG>::bytes(p.sk), p, s,
-                128 * WG);
-}
-
-template <int D>
-int fwd_f32(const FlashParams& p, cudaStream_t s) {
-  dim3 grid((p.sq + kRows - 1) / kRows, p.h, p.b);
-  return launch(flash_fwd_f32_kernel<D>, grid, FwdSmem<D>::bytes(p.sk), p, s);
-}
-
-template <typename T, typename OutT, int D>
-int dq(const FlashParams& p, cudaStream_t s) {
-  dim3 grid((p.sq + kRows - 1) / kRows, p.h, p.b);
-  return launch(flash_bwd_dq_kernel<T, OutT, D>, grid, DqSmem<T, D>::bytes, p, s);
-}
-
-template <typename T, typename OutT, int D>
-int dkv(const FlashParams& p, cudaStream_t s) {
-  dim3 grid((p.sk + kRows - 1) / kRows, p.kvh, p.b);
-  return launch(flash_bwd_dkv_kernel<T, OutT, D>, grid, DkvSmem<T, D>::bytes, p, s);
 }
 
 }  // namespace
@@ -1080,53 +1492,40 @@ int dkv(const FlashParams& p, cudaStream_t s) {
 extern "C" {
 
 int tpuft_flash_fwd(const FlashParams* p, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && p->d == 64) return fwd_bf16<64>(*p, s);
-  if (dtype == kBF16 && p->d == 128) return fwd_bf16<128>(*p, s);
-  if (dtype == kF32 && p->d == 64) return fwd_f32<64>(*p, s);
-  if (dtype == kF32 && p->d == 128) return fwd_f32<128>(*p, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The forward's resources for a KV length of sk (its shared memory holds
-// one int per KV tile): out[0] resident blocks per SM, out[1] threads
-// per block, out[2] registers and out[3] local-memory bytes per thread.
-int tpuft_flash_fwd_resources(int dtype, int d, int sk, int* out) {
-  constexpr int WG = kFwdWarpgroups;
-  if (dtype == kBF16 && (d == 64 || d == 128)) {
-    return d == 64 ? resources(flash_fwd_wgmma_kernel<64, WG>, 128 * WG,
-                               FwdWgmmaSmem<64, WG>::bytes(sk), out)
-                   : resources(flash_fwd_wgmma_kernel<128, WG>, 128 * WG,
-                               FwdWgmmaSmem<128, WG>::bytes(sk), out);
-  }
-  if (dtype == kF32 && (d == 64 || d == 128)) {
-    return d == 64 ? resources(flash_fwd_f32_kernel<64>, kThreads, FwdSmem<64>::bytes(sk), out)
-                   : resources(flash_fwd_f32_kernel<128>, kThreads, FwdSmem<128>::bytes(sk),
-                               out);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run(plan(kFwd, dtype, 0, *p), *p, stream);
 }
 
 int tpuft_flash_bwd_dq(const FlashParams* p, int dtype, int out_f32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && !out_f32 && p->d == 64) return dq<bf16, bf16, 64>(*p, s);
-  if (dtype == kBF16 && !out_f32 && p->d == 128) return dq<bf16, bf16, 128>(*p, s);
-  if (dtype == kBF16 && out_f32 && p->d == 64) return dq<bf16, float, 64>(*p, s);
-  if (dtype == kBF16 && out_f32 && p->d == 128) return dq<bf16, float, 128>(*p, s);
-  if (dtype == kF32 && p->d == 64) return dq<float, float, 64>(*p, s);
-  if (dtype == kF32 && p->d == 128) return dq<float, float, 128>(*p, s);
-  return (int)cudaErrorInvalidValue;
+  return run(plan(kDq, dtype, out_f32, *p), *p, stream);
 }
 
 int tpuft_flash_bwd_dkv(const FlashParams* p, int dtype, int out_f32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && !out_f32 && p->d == 64) return dkv<bf16, bf16, 64>(*p, s);
-  if (dtype == kBF16 && !out_f32 && p->d == 128) return dkv<bf16, bf16, 128>(*p, s);
-  if (dtype == kBF16 && out_f32 && p->d == 64) return dkv<bf16, float, 64>(*p, s);
-  if (dtype == kBF16 && out_f32 && p->d == 128) return dkv<bf16, float, 128>(*p, s);
-  if (dtype == kF32 && p->d == 64) return dkv<float, float, 64>(*p, s);
-  if (dtype == kF32 && p->d == 128) return dkv<float, float, 128>(*p, s);
-  return (int)cudaErrorInvalidValue;
+  return run(plan(kDkv, dtype, out_f32, *p), *p, stream);
+}
+
+// The resources of one kernel instance (`kernel` 0 forward, 1 dq, 2 dk/dv)
+// at sequence length `s` (its shared memory holds one int per streamed
+// tile): out[0] resident blocks per SM, out[1] threads per block, out[2]
+// registers and out[3] local-memory bytes (spills and stack) per thread.
+int tpuft_flash_resources(int kernel, int dtype, int out_f32, int d, int s, int* out) {
+  FlashParams p{};
+  p.b = p.h = p.kvh = 1;
+  p.sq = p.sk = s;
+  p.d = d;
+  const Plan k = plan(kernel, dtype, out_f32, p);
+  if (!k.fn) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k.fn, k.threads, k.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, k.fn);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = k.threads;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

@@ -15,10 +15,12 @@ package's three Pallas kernels:
 Each masks from explicit int32 position arrays (``q_pos >= k_pos``), skips
 a tile wholly above the diagonal, and gives fully masked rows ``out = 0``,
 ``lse = -1e30``. They read q/k/v in the model's ``(b, s, heads, d)``
-layout through strides, so no transposes are made. The bf16 forward runs
-on Hopper's wgmma with its accumulators in registers and K/V streamed
-through a cp.async ring; the source says what bounds each kernel on the
-H100 and how its design meets it.
+layout through strides, so no transposes are made. The three bf16
+kernels run on Hopper's wgmma with their accumulators in registers and
+the streamed side (K/V, or Q/dO for dk/dv) through a cp.async ring; the
+source says what bounds each kernel on the H100 and how its design meets
+it. ``flash_resources`` reads a kernel's registers, local memory and
+resident blocks per SM from the loaded library.
 
 Every wrapper takes its kernel for a CUDA tensor and its plain version
 for a CPU tensor; there is no fallback from one to the other. The kernels
@@ -46,7 +48,7 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_dkv",
     "flash_fwd_reference",
-    "flash_fwd_resources",
+    "flash_resources",
     "flash_bwd_dq_reference",
     "flash_bwd_dkv_reference",
     "launches",
@@ -56,6 +58,8 @@ __all__ = [
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel codes of ``tpuft_flash_resources`` (kFwd, kDq, kDkv in the source).
+_KERNEL_CODE = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 # Kernel launches since the last reset_launches(), by kernel.
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -95,9 +99,9 @@ def _library() -> ctypes.CDLL:
         lib.tpuft_flash_fwd.argtypes = [ptr, i32, ptr]
         lib.tpuft_flash_bwd_dq.argtypes = [ptr, i32, i32, ptr]
         lib.tpuft_flash_bwd_dkv.argtypes = [ptr, i32, i32, ptr]
-        lib.tpuft_flash_fwd_resources.argtypes = [i32, i32, i32, i32p]
+        lib.tpuft_flash_resources.argtypes = [i32, i32, i32, i32, i32, i32p]
         for fn in (lib.tpuft_flash_fwd, lib.tpuft_flash_bwd_dq, lib.tpuft_flash_bwd_dkv,
-                   lib.tpuft_flash_fwd_resources):
+                   lib.tpuft_flash_resources):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -217,20 +221,6 @@ def flash_fwd(q, k, v, q_positions, k_positions, scale):
     return out, lse
 
 
-def flash_fwd_resources(dtype: torch.dtype, head_dim: int, sk: int) -> Dict[str, int]:
-    """The forward kernel's resources on the current card, for keys of
-    length ``sk``: resident blocks per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads per block,
-    and registers and local-memory bytes per thread (``cudaFuncGetAttributes``;
-    local memory holds spills and stack)."""
-    out = (ctypes.c_int * 4)()
-    rc = _library().tpuft_flash_fwd_resources(_DTYPE_CODE[dtype], head_dim, sk, out)
-    if rc:
-        raise RuntimeError(f"flash_fwd resources query failed with CUDA error {rc}")
-    keys = ("blocks_per_sm", "threads_per_block", "registers", "local_bytes")
-    return dict(zip(keys, out))
-
-
 # -------------------------------------------------- backward (B4 and B5)
 
 
@@ -312,6 +302,28 @@ def flash_bwd_dkv(q, k, v, d_out, lse, delta, q_positions, k_positions, scale, o
     return _bwd_launch("flash_bwd_dkv", *args)
 
 
+def flash_resources(
+    kernel: str, dtype: torch.dtype, head_dim: int, seq: int,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Dict[str, int]:
+    """One kernel instance's resources on the current card: ``kernel`` is a
+    key of ``_KERNEL_CODE``, ``out_dtype`` the gradients' type (default
+    ``dtype``), ``seq`` the sequence length its shared memory is sized for.
+    Returns resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads per block,
+    and registers and local-memory bytes per thread (``cudaFuncGetAttributes``;
+    local memory holds spills and stack)."""
+    out_f32 = int(out_dtype == torch.float32 and dtype != torch.float32)
+    out = (ctypes.c_int * 4)()
+    rc = _library().tpuft_flash_resources(
+        _KERNEL_CODE[kernel], _DTYPE_CODE[dtype], out_f32, head_dim, seq, out
+    )
+    if rc:
+        raise RuntimeError(f"{kernel} resources query failed with CUDA error {rc}")
+    keys = ("blocks_per_sm", "threads_per_block", "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 def _attention_backward(*args):
     return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
 
@@ -358,9 +370,9 @@ def flash_attention(
 
     Shapes: q (b, s, h, d); k/v (b, s, kv_heads, d); h % kv_heads == 0.
     ``block_q``/``block_k`` are kept for the JAX signature and not used:
-    the CUDA kernels tile by 128 query rows and 128 keys (the bf16
-    forward) or 64 and 64 (the others), chosen for the H100's shared
-    memory, registers and wgmma shapes (see csrc/flash_attention.cu).
+    the CUDA kernels fix their own tiles (128 rows a block for bf16, 64
+    for f32), chosen for the H100's shared memory, registers and wgmma
+    shapes (see csrc/flash_attention.cu).
     """
     del block_q, block_k
     if q.shape[2] % k.shape[2]:
