@@ -51,7 +51,22 @@ Phases, each printing one JSON line:
    on leaves from both buckets' dtypes. The groups share the card, so
    their step time over the train phase's is printed as such, not as the
    fault-tolerance overhead.
-8. planted_faults: copies of the kernels with known faults (a skipped GQA
+8. ft_heal: the kill and live heal of a replica group, on the one card.
+   Three processes, each the full flagship under its own Manager
+   (init_sync=True, ProcessGroupNative, fp8 buckets, the lighthouse
+   waiting for two groups), each building its weights from its own seed.
+   Group 1 heals from group 0 at step 0 (the init_sync heal over HTTP);
+   once group 1 has printed its step-2 line this process SIGKILLs it and
+   starts a restart under a new replica id and a third seed, which heals
+   from the survivor; both run to step HEAL_STEPS. It fails unless group 1
+   left step 0 with group 0's parameters, the survivor and the restart end
+   with equal parameter and optimizer-state digests and equal step
+   accounting, the survivor failed at most one commit, and every committed
+   step launched B1 and B2 once per bucket and each flash kernel once per
+   layer. It prints each heal's bytes, seconds, GB/s and the donor's
+   staging time, the wall time from the kill to the restart's first
+   committed step, and each process's peak device memory.
+9. planted_faults: copies of the kernels with known faults (a skipped GQA
    head, a skipped KV or query tile, a dropped softmax correction or
    delta, masks from indices, an unmasked ragged tail, a max that drops
    NaN, ...), built and checked in parallel; the run fails unless the
@@ -123,6 +138,13 @@ BATCH = 4
 FT_STEPS = 4
 FT_GROUPS = 2
 FT_TIMEOUT_S = 600
+# ft_heal: group 0 survives, group 1 is killed once its step-2 line is out,
+# and its restart joins; each builds its weights from its own seed. One
+# deadline bounds the whole phase.
+HEAL_STEPS = 6
+HEAL_KILL_AFTER = 2
+HEAL_SEEDS = (0, 1, 2)
+HEAL_TIMEOUT_S = 540
 
 # Known faults for the planted_faults phase: (name, source in csrc/, text
 # in it, its replacement, the check that must reject it); a fault made of
@@ -878,15 +900,12 @@ def ft_group(group: int, lighthouse: str, steps: int, work: str) -> None:
         counts = {**q.launches, **fa.launches}
         torch.save({"plain": plain, "averaged": {k: v.cpu() for k, v in averaged.items()}},
                    Path(work) / f"grads{group}.pt")
-        digest = hashlib.sha256()
-        for param in model.parameters():
-            digest.update(param.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
         emit({
             "phase": "ft_ddp_group", "group": group, "launches": counts,
             "buckets": n_buckets, "step": manager.current_step(),
             "batches_committed": manager.batches_committed(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "params_sha256": digest.hexdigest(),
+            "params_sha256": tensors_sha256(model.parameters()),
         })
     finally:
         manager.shutdown(wait=False)
@@ -1023,6 +1042,254 @@ def phase_ft_ddp(plain_step_ms: float):
     return launches
 
 
+def tensors_sha256(tensors) -> str:
+    import torch
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
+    return digest.hexdigest()
+
+
+def _heal_totals() -> dict:
+    """This process's heal counters so far: bytes received, the joiner's
+    fetch and apply seconds; the donor's staging seconds and the seconds
+    its server held the joiner's requests until the stage was ready."""
+    from torchft_tpu_torch import metrics
+
+    return {
+        "recv_bytes": metrics.counter_total("tpuft_heal_recv_bytes_total"),
+        "recv_s": metrics.histogram_stats("tpuft_heal_recv_seconds")["sum"],
+        "apply_s": metrics.histogram_stats("tpuft_heal_apply_seconds")["sum"],
+        "donor_send_s": metrics.histogram_stats("tpuft_heal_send_seconds")["sum"],
+        "donor_stage_s": metrics.histogram_stats("tpuft_heal_serve_stage_seconds")["sum"],
+        "donor_held_s": metrics.histogram_stats("tpuft_ckpt_donor_stall_seconds")["sum"],
+    }
+
+
+def ft_heal_group(index: int, lighthouse: str, steps: int) -> None:
+    """One process of the ft_heal phase: group 0, group 1, or group 1's
+    restart (``index`` 2, a new replica id). Prints a JSON line per step and,
+    when it reaches ``steps``, one at the end."""
+    started = time.time()
+    import torch
+
+    from torchft_tpu_torch.ddp import _bucket_cap_bytes, _plan_buckets
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models.llama import Llama, large_bench_config
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.optim import Optimizer, sgd
+    from torchft_tpu_torch.parallel.native_pg import ProcessGroupNative
+    from torchft_tpu_torch.parallel.store import StoreClient, StoreServer
+
+    cfg = large_bench_config(remat="none")
+    model = Llama(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(HEAL_SEEDS[index]))
+    initial = tensors_sha256(model.parameters())
+    store = StoreServer()
+    manager = Manager(
+        # A dead peer shows as a closed socket at once; the timeouts only
+        # bound a peer that hangs.
+        pg=ProcessGroupNative(timeout=120.0), min_replica_size=1,
+        store=StoreClient(store.address()), store_addr=store.address(),
+        lighthouse_addr=lighthouse, replica_id=f"heal{index}", init_sync=True,
+        timeout=120.0, quorum_timeout=float(HEAL_TIMEOUT_S),
+    )
+    try:
+        opt = Optimizer(manager, sgd(0.01, momentum=0.9)(model.parameters()), model)
+        quorum_s = []
+        step = opt.make_step_fn(_loss, should_quantize=True, on_quorum=quorum_s.append)
+        n_buckets = len(_plan_buckets(list(model.parameters()), _bucket_cap_bytes()))
+        batches = torch.randint(
+            0, cfg.vocab_size, (steps, BATCH, cfg.max_seq_len + 1), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(200 + index),
+        )
+        torch.cuda.synchronize()
+        ready = time.time()
+        q.reset_launches()
+        fa.reset_launches()
+        deadline = time.monotonic() + HEAL_TIMEOUT_S
+        failed = 0
+        for i in range(steps + 3):  # every step, a failed commit, and slack
+            if manager.current_step() >= steps or time.monotonic() > deadline:
+                break
+            before = {**q.launches, **fa.launches}
+            heal0 = _heal_totals()
+            start = time.perf_counter()
+            loss, committed = step(batches[manager.current_step() % steps])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            failed += not committed
+            heal = {k: v - heal0[k] for k, v in _heal_totals().items()}
+            record = {
+                "phase": "ft_heal_step", "group": index, "i": i, "t": time.time(), "ms": ms,
+                "quorum_ms": quorum_s[-1] * 1e3, "committed": committed,
+                "step": manager.current_step(), "loss": loss.item(), "heals": opt._heal_count,
+                "buckets": n_buckets,
+                "launches": {k: v - before[k] for k, v in {**q.launches, **fa.launches}.items()},
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            }
+            if any(heal.values()):
+                record["heal"] = heal
+            if i == 0:
+                # Group 1 must leave step 0 with group 0's parameters.
+                record["params_sha256"] = tensors_sha256(model.parameters())
+            emit(record)
+        if manager.current_step() < steps:
+            raise RuntimeError(f"ft_heal group {index}: stopped at step {manager.current_step()}")
+        state = opt.optimizer.state_dict()["state"]
+        emit({
+            "phase": "ft_heal_group", "group": index, "step": manager.current_step(),
+            "batches_committed": manager.batches_committed(), "failed_commits": failed,
+            "heals": opt._heal_count, "started": started, "ready": ready,
+            "initial_params_sha256": initial,
+            "params_sha256": tensors_sha256(model.parameters()),
+            "optimizer_sha256": tensors_sha256(
+                state[k]["momentum_buffer"] for k in sorted(state)),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        })
+    finally:
+        manager.shutdown(wait=False)
+        store.shutdown()
+
+
+def _json_lines(path: Path) -> list:
+    """The JSON lines a process has finished writing to ``path``."""
+    complete = path.read_text().split("\n")[:-1]
+    return [json.loads(line) for line in complete if line.startswith("{")]
+
+
+def phase_ft_heal() -> None:
+    """The kill and live heal of a replica group (see the module docstring).
+    Every failure raises; the phase runs under HEAL_TIMEOUT_S in all."""
+    import signal
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.models.llama import large_bench_config
+
+    deadline = time.monotonic() + HEAL_TIMEOUT_S
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=2, join_timeout_ms=1000)
+    work = Path(tempfile.mkdtemp(prefix="ft_heal_"))
+    procs = {}
+
+    def spawn(index: int) -> None:
+        with open(work / f"{index}.out", "w") as out, open(work / f"{index}.err", "w") as err:
+            procs[index] = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--ft-heal-group", str(index),
+                 lighthouse.address(), str(HEAL_STEPS)],
+                cwd=ROOT, stdout=out, stderr=err, text=True,
+                env={**os.environ, "TPUFT_LOG": "warn"},
+            )
+
+    def failure(what: str) -> AssertionError:
+        tails = {i: (work / f"{i}.err").read_text().strip()[-1500:] for i in procs}
+        return AssertionError(f"ft_heal: {what}; stderr tails: {tails}")
+
+    try:
+        spawn(0)
+        spawn(1)
+        while not any(r["phase"] == "ft_heal_step" and r["i"] == HEAL_KILL_AFTER
+                      for r in _json_lines(work / "1.out")):
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs.values()):
+                raise failure(f"group 1 never printed its step-{HEAL_KILL_AFTER} line")
+            time.sleep(0.05)
+        killed_at = time.time()
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait(timeout=60)
+        spawn(2)
+        for index in (0, 2):
+            try:
+                procs[index].wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise failure(f"process {index} did not finish by the deadline") from None
+            if procs[index].returncode != 0:
+                raise failure(f"process {index} exited {procs[index].returncode}")
+        lines = {i: _json_lines(work / f"{i}.out") for i in procs}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lighthouse.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+    steps = {i: [r for r in lines[i] if r["phase"] == "ft_heal_step"] for i in lines}
+    ends = {r["group"]: r for i in lines for r in lines[i] if r["phase"] == "ft_heal_group"}
+    for records in steps.values():
+        for record in records:
+            print(json.dumps(record), flush=True)
+    for record in ends.values():
+        print(json.dumps(record), flush=True)
+    if sorted(ends) != [0, 2]:
+        raise AssertionError(f"ft_heal: expected end lines of the survivor and the restart: {ends}")
+    survivor, restart = ends[0], ends[2]
+
+    # The init_sync heal: group 1 built other weights and left step 0 with
+    # group 0's.
+    g0, g1 = steps[0][0], steps[1][0]
+    if not (g1["heals"] == 1 and g0["heals"] == 0 and g1["committed"] and g0["committed"]):
+        raise AssertionError(f"ft_heal: step 0 did not heal group 1: {g0}, {g1}")
+    if g1["params_sha256"] != g0["params_sha256"]:
+        raise AssertionError("ft_heal: group 1's parameters differ from group 0's after step 0")
+    # The restart's heal: equal end state, reached only through the heal.
+    if survivor["initial_params_sha256"] == restart["initial_params_sha256"]:
+        raise AssertionError("ft_heal: the restart built the survivor's weights")
+    for key in ("params_sha256", "optimizer_sha256", "step", "batches_committed"):
+        if survivor[key] != restart[key]:
+            raise AssertionError(f"ft_heal: {key} differs: {survivor[key]} != {restart[key]}")
+    if survivor["step"] != HEAL_STEPS or restart["heals"] != 1:
+        raise AssertionError(f"ft_heal: step accounting {survivor}, {restart}")
+    if survivor["failed_commits"] > 1 or restart["failed_commits"] > 0:
+        raise AssertionError(f"ft_heal: failed commits {survivor['failed_commits']} "
+                             f"(survivor), {restart['failed_commits']} (restart)")
+    n_layers = large_bench_config().n_layers
+    for index in (0, 2):
+        for record in steps[index]:
+            want = {"quantize_blocks": record["buckets"], "dequantize_blocks": record["buckets"],
+                    "flash_fwd": n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+            if record["committed"] and record["launches"] != want:
+                raise AssertionError(f"ft_heal: launches of a committed step: {record}, want {want}")
+            if not math.isfinite(record["loss"]):
+                raise AssertionError(f"ft_heal: non-finite loss {record}")
+
+    def heal_of(joiner_steps, donor_steps):
+        joined = next(r for r in joiner_steps if "heal" in r and r["heal"]["recv_bytes"])
+        donor = next(r for r in donor_steps if "heal" in r and r["heal"]["donor_stage_s"]
+                     and r["step"] == joined["step"])
+        h = joined["heal"]
+        # fetch_s runs from the donor's address lookup to the last verified
+        # chunk; the donor's server holds the requests while it stages
+        # (donor_held_ms, summed over the meta and chunk requests).
+        return {"at_step": joined["step"] - 1, "bytes": h["recv_bytes"],
+                "fetch_s": h["recv_s"], "GB_per_s": h["recv_bytes"] / h["recv_s"] / 1e9,
+                "apply_s": h["apply_s"], "donor_stage_ms": donor["heal"]["donor_stage_s"] * 1e3,
+                "donor_send_ms": donor["heal"]["donor_send_s"] * 1e3,
+                "donor_held_ms": donor["heal"]["donor_held_s"] * 1e3}
+
+    first_commit = next(r for r in steps[2] if r["committed"])
+    committed_ms = [r["ms"] for r in steps[0] if r["committed"] and r["i"] > 0
+                    and "heal" not in r]
+    emit({
+        "phase": "ft_heal", "steps": HEAL_STEPS, "kill_after_step_line": HEAL_KILL_AFTER,
+        "init_sync_heal": heal_of(steps[1], steps[0]),
+        "restart_heal": heal_of(steps[2], steps[0]),
+        # From the SIGKILL to the restart's first committed step, and of it
+        # the restart's own start-up (process, imports, CUDA, the model).
+        "heal_wall_s": first_commit["t"] - killed_at,
+        "restart_ready_s": restart["ready"] - killed_at,
+        "survivor_failed_commits": survivor["failed_commits"],
+        "survivor_steady_step_ms": statistics.median(committed_ms) if committed_ms else None,
+        "params_sha256_equal": True, "optimizer_sha256_equal": True,
+        "step": survivor["step"], "batches_committed": survivor["batches_committed"],
+        "max_memory_allocated": {
+            "group0": survivor["max_memory_allocated"],
+            "group1": max(r["max_memory_allocated"] for r in steps[1]),
+            "restart": restart["max_memory_allocated"],
+        },
+    })
+
+
 # Kernel names to a group of the step's device time.
 PROFILE_GROUPS = (
     ("flash attention kernels", r"flash_(fwd|bwd)"),
@@ -1145,6 +1412,7 @@ def main() -> int:
     entries = phase_codec() + phase_kernels()
     counts, plain_step_ms = phase_train()
     counts.update(phase_ft_ddp(plain_step_ms))
+    phase_ft_heal()
     phase_planted_faults()
     for entry in entries:
         entry["launches"] = counts[entry["name"]]
@@ -1163,5 +1431,10 @@ if __name__ == "__main__":
         # --ft-group GROUP LIGHTHOUSE STEPS WORKDIR.
         sys.path.insert(0, str(ROOT))
         ft_group(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]), sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ft-heal-group"]:
+        # One process of the ft_heal phase: --ft-heal-group INDEX LIGHTHOUSE STEPS.
+        sys.path.insert(0, str(ROOT))
+        ft_heal_group(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Manager: the per-rank fault-tolerance state machine (counterpart of
-torchft_tpu/manager.py, narrowed to what a run of replica groups needs
-while no group dies).
+torchft_tpu/manager.py, narrowed to FT-DDP with kills and single-donor
+heals).
 
 Embedded in the train loop, it:
 
@@ -12,7 +12,12 @@ Embedded in the train loop, it:
   contribute zeros, AVG runs as SUM divided by the live participant count,
   and collective errors are swallowed into a sticky per-step error state;
 - arbitrates per-step commits through the all-local-rank AND barrier
-  (``should_commit``), advancing the step only on quorum-wide success.
+  (``should_commit``), advancing the step only on quorum-wide success;
+- heals: a group the quorum finds behind (a restarted group, or every
+  non-primary group at step 0 under ``init_sync=True``) fetches the
+  committed state of its assigned donor through the checkpoint transport
+  (:class:`~torchft_tpu_torch.checkpointing.HTTPTransport` by default),
+  and a donor stages its committed state for it.
 
 Step protocol (see also :class:`torchft_tpu_torch.optim.Optimizer`)::
 
@@ -22,12 +27,10 @@ Step protocol (see also :class:`torchft_tpu_torch.optim.Optimizer`)::
     if manager.should_commit():     # commit barrier
         optimizer.step()
 
-Not in this slice, and raising where a run would need them: healing a
-joining group from a donor (a quorum that assigns this group a recovery,
-including the step-0 sync that ``init_sync=True`` asks of every
-non-primary group), the pipelined and speculative commit
-(``commit_pipeline_depth > 0``), and the history, publishing, health and
-goodput planes.
+Not in the port yet: the pipelined and speculative commit
+(``commit_pipeline_depth > 0`` raises), multi-donor striped and delta
+heals, the storm rotation, WorldSizeMode, and the history, publishing,
+health and goodput planes.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
 import torch
 
 from torchft_tpu_torch import metrics
+from torchft_tpu_torch.checkpointing._rwlock import RWLock
+from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import future_timeout
 from torchft_tpu_torch.parallel.process_group import ProcessGroup, ReduceOp
@@ -53,7 +59,7 @@ T = TypeVar("T")
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Manager", "ExceptionWithTraceback"]
+__all__ = ["Manager", "ExceptionWithTraceback", "HealExhaustedError"]
 
 TIMEOUT_SEC_ENV = "TPUFT_TIMEOUT_SEC"
 QUORUM_TIMEOUT_SEC_ENV = "TPUFT_QUORUM_TIMEOUT_SEC"
@@ -61,16 +67,28 @@ CONNECT_TIMEOUT_SEC_ENV = "TPUFT_CONNECT_TIMEOUT_SEC"
 QUORUM_RETRIES_ENV = "TPUFT_QUORUM_RETRIES"
 LIGHTHOUSE_ENV = "TPUFT_LIGHTHOUSE"
 MANAGER_PORT_ENV = "TPUFT_MANAGER_PORT"
-
-_NEXT_SLICE = (
-    "healing is ported in the next slice of torchft_tpu_torch (ROADMAP.md, "
-    "\"Slices, in order\")"
-)
+HEAL_MAX_ATTEMPTS_ENV = "TPUFT_HEAL_MAX_ATTEMPTS"
 
 
 def _env_timeout(env: str, default: float) -> float:
     value = os.environ.get(env)
     return float(value) if value is not None else default
+
+
+class HealExhaustedError(RuntimeError):
+    """Raised out of the quorum future (``wait_quorum``/``start_quorum``)
+    when ``TPUFT_HEAL_MAX_ATTEMPTS`` consecutive heal attempts all failed:
+    this replica cannot catch up from any donor it is assigned, so, like a
+    quorum timeout or the ``max_retries`` commit RuntimeError, it escalates
+    past the step boundary to the supervisor instead of looping on a heal
+    that will never land."""
+
+
+class _DonorRecentlyFailed(Exception):
+    """Internal: the assigned donor failed us on the immediately preceding
+    attempt; fail this heal round fast (no transfer) so the next quorum
+    round can reassign. One-shot per failure: a consecutive assignment of
+    the same donor is attempted for real."""
 
 
 class ExceptionWithTraceback(Exception):
@@ -97,11 +115,22 @@ class Manager:
         group_rank/group_world_size: this process's coordinates inside the
             replica group.
         init_sync: ask the quorum to sync every non-primary group's state at
-            step 0 (the default, as in the reference). Such a sync is a heal,
-            which this slice does not run: groups that start from the same
-            seed pass ``init_sync=False``.
+            step 0 (the default, as in the reference): those groups heal from
+            the primary before their first step.
         commit_pipeline_depth: only 0 (resolve every commit before the next
             dispatch) is ported.
+        checkpoint_transport: how heals move state; default an
+            :class:`HTTPTransport` with this manager's ``timeout``.
+        use_async_quorum: overlap the quorum with the forward pass. A
+            healing replica then sits the step out (contributes zeros, the
+            max-step cohort participates) and applies the fetched state at
+            the commit barrier; with False the heal is applied inside
+            ``start_quorum`` and the replica participates at once.
+        heal_max_attempts: consecutive failed heal attempts tolerated before
+            :class:`HealExhaustedError` escalates out of the quorum future
+            (``$TPUFT_HEAL_MAX_ATTEMPTS`` overrides). Each failed attempt
+            funnels into :meth:`report_error`: the step does not commit and
+            the joiner re-enters the next quorum still joining.
     """
 
     def __init__(
@@ -124,6 +153,9 @@ class Manager:
         max_retries: Optional[int] = None,
         quorum_retries: int = 0,
         commit_pipeline_depth: int = 0,
+        checkpoint_transport: Optional[CheckpointTransport] = None,
+        use_async_quorum: bool = True,
+        heal_max_attempts: int = 5,
     ) -> None:
         if commit_pipeline_depth:
             raise NotImplementedError(
@@ -137,6 +169,7 @@ class Manager:
         self._connect_timeout = _env_timeout(CONNECT_TIMEOUT_SEC_ENV, connect_timeout)
         self._quorum_retries = int(os.environ.get(QUORUM_RETRIES_ENV, str(quorum_retries)))
         self._init_sync = init_sync
+        self._use_async_quorum = use_async_quorum
         self._max_retries = max_retries
         self._group_rank: int = (
             group_rank if group_rank is not None else int(os.environ.get("GROUP_RANK", "0"))
@@ -147,9 +180,29 @@ class Manager:
             else int(os.environ.get("GROUP_WORLD_SIZE", "1"))
         )
         self._store = store
+        self._checkpoint_transport: CheckpointTransport = (
+            checkpoint_transport
+            if checkpoint_transport is not None
+            else HTTPTransport(timeout=self._timeout)
+        )
+        self._checkpoint_transport.register_error_callback(self.report_error)
 
+        # The state-dict registry under a readers-writer lock: readers stage
+        # a checkpoint for a peer, the writer applies a healed one.
+        self._state_dict_lock = RWLock()
         self._load_state_dict_fns: Dict[str, Callable[[Any], None]] = {}
         self._user_state_dicts: Dict[str, Callable[[], Any]] = {}
+
+        # Heal state: the fetched state dict waits here until the train
+        # thread applies it; failed attempts are counted across rounds.
+        self._healing = False
+        self._pending_state_dict: Optional[Dict[str, Any]] = None
+        self._heal_max_attempts = max(
+            1, int(os.environ.get(HEAL_MAX_ATTEMPTS_ENV, str(heal_max_attempts)))
+        )
+        self._heal_attempts = 0
+        self._heal_last_failed_donor: Optional[str] = None
+        self._heal_failed_donors: Dict[str, bool] = {}
 
         # Step/commit accounting.
         self._step = 0
@@ -221,6 +274,16 @@ class Manager:
         self._load_state_dict_fns[key] = cast(Callable[[Any], None], load_state_dict)
         self._user_state_dicts[key] = state_dict
 
+    def disallow_state_dict_read(self, timeout: Optional[float] = None) -> None:
+        """Takes the state-dict write lock: no checkpoint is staged for a
+        peer while the caller mutates registered state."""
+        effective = self._timeout if timeout is None else timeout
+        if not self._state_dict_lock.w_acquire(effective):
+            raise TimeoutError("state dict write lock not acquired")
+
+    def allow_state_dict_read(self) -> None:
+        self._state_dict_lock.w_release()
+
     @property
     def commit_pipeline_depth(self) -> int:
         return 0
@@ -238,6 +301,7 @@ class Manager:
                 hook()
             except Exception:  # noqa: BLE001 — one hook must not block teardown
                 logger.exception("shutdown hook failed (ignored)")
+        self._checkpoint_transport.shutdown(wait=wait)
         if self._manager is not None:
             self._manager.shutdown()
         self._executor.shutdown(wait=wait)
@@ -350,15 +414,23 @@ class Manager:
     def start_quorum(self, shrink_only: bool = False, timeout: Optional[float] = None) -> None:
         """Starts the quorum on the manager's executor, so it overlaps the
         caller's work, and readies the manager for a new step. Call before
-        the forward pass."""
+        the forward pass. With ``use_async_quorum=False`` it waits for the
+        quorum and applies a heal before it returns."""
         if self._quorum_future is not None:
             self._quorum_future.result()
         self._errored = None
+        self._healing = False
         self._quorum_future = self._executor.submit(
             self._async_quorum,
             shrink_only=shrink_only,
             quorum_timeout=timeout or self._quorum_timeout,
         )
+        if not self._use_async_quorum:
+            self.wait_quorum()
+            if self._healing:
+                # The forward pass runs against the recovered state.
+                self._apply_pending_state_dict()
+                self._healing = False
 
     def wait_quorum(self) -> None:
         """Blocks until the quorum completes; the process group is healthy
@@ -372,25 +444,22 @@ class Manager:
             quorum = self._client._quorum(
                 group_rank=self._group_rank,
                 step=self._step,
-                checkpoint_metadata="",
+                checkpoint_metadata=self._checkpoint_transport.metadata(),
                 shrink_only=shrink_only,
                 init_sync=self._init_sync,
                 commit_failures=self._commit_failures,
                 timeout=quorum_timeout,
             )
-        if quorum.heal or quorum.recover_dst_replica_ranks:
-            role = "heal from a donor" if quorum.heal else (
-                f"serve a checkpoint to replica ranks {list(quorum.recover_dst_replica_ranks)}"
-            )
-            raise NotImplementedError(
-                f"quorum {quorum.quorum_id} asks this group to {role} (step "
-                f"{self._step}, max step {quorum.max_step}); {_NEXT_SLICE}. Groups "
-                "that start from the same seed pass init_sync=False."
-            )
 
-        # The max-step cohort participates (with no heal, every member).
-        self._participating_replica_rank = quorum.max_rank
-        self._participating_replica_world_size = quorum.max_world_size
+        # Async quorum: a healing replica sits this step out and the
+        # max-step cohort participates. Sync quorum: the heal is applied
+        # before the step, so every member participates.
+        if self._use_async_quorum:
+            self._participating_replica_rank = quorum.max_rank
+            self._participating_replica_world_size = quorum.max_world_size
+        else:
+            self._participating_replica_rank = quorum.replica_rank
+            self._participating_replica_world_size = quorum.replica_world_size
         metrics.set_gauge(
             "tpuft_participants", self._participating_replica_world_size, **self._metric_labels
         )
@@ -414,6 +483,121 @@ class Manager:
             except Exception as e:  # noqa: BLE001
                 logger.exception("got exception in pg configure: %s", e)
                 self.report_error(e)
+                return
+
+        if quorum.recover_dst_replica_ranks:
+            # Donor: stage the committed state of this step (the commit
+            # pipeline is depth 0, so no uncommitted update exists) until
+            # the commit barrier closes the window.
+            logger.info(
+                "[%s/%d - step %d] peers need recovery from us %s", self._replica_id,
+                self._group_rank, self._step, list(quorum.recover_dst_replica_ranks),
+            )
+            metrics.inc("tpuft_heals_total", role="donor", **self._metric_labels)
+            try:
+                with metrics.timer("tpuft_heal_send_seconds", **self._metric_labels):
+                    self._checkpoint_transport.send_checkpoint(
+                        dst_ranks=list(quorum.recover_dst_replica_ranks),
+                        step=quorum.max_step,
+                        state_dict=self._manager_state_dict(),
+                        timeout=self._timeout,
+                        quorum_id=quorum.quorum_id,
+                    )
+            except Exception as e:  # noqa: BLE001
+                logger.exception("got exception in donor send: %s", e)
+                self.report_error(e)
+        if quorum.heal:
+            self._heal_as_joiner(quorum)
+
+    def _heal_as_joiner(self, quorum: Any) -> None:
+        """One heal attempt from the quorum's assigned donor, with the
+        failover accounting around it: the donor's transport address comes
+        from its manager, the state from ``recv_checkpoint``. A failed
+        attempt funnels into :meth:`report_error` (the step does not commit
+        and the joiner re-enters the next quorum still joining; the
+        transport keeps the chunks it verified), the donor is skipped once
+        if it is assigned again at once, and after ``heal_max_attempts``
+        consecutive failures :class:`HealExhaustedError` escalates out of
+        the quorum future."""
+        self._healing = True
+        metrics.set_gauge("tpuft_healing", 1, **self._metric_labels)
+        metrics.inc("tpuft_heals_total", role="joiner", **self._metric_labels)
+        src_addr = quorum.recover_src_manager_address
+        try:
+            if self._heal_attempts > 0:
+                metrics.inc("tpuft_heal_retries_total", **self._metric_labels)
+            if self._heal_failed_donors.get(src_addr, False):
+                self._heal_failed_donors[src_addr] = False
+                raise _DonorRecentlyFailed(
+                    f"donor {src_addr} failed the previous heal attempt; "
+                    "skipping one round to let the assignment rotate"
+                )
+            if self._heal_last_failed_donor is not None and src_addr != self._heal_last_failed_donor:
+                metrics.inc("tpuft_heal_donor_failovers_total", **self._metric_labels)
+            logger.info(
+                "[%s/%d - step %d] healing from %s, max_step=%d", self._replica_id,
+                self._group_rank, self._step, src_addr, quorum.max_step,
+            )
+            donor = ManagerClient(src_addr, connect_timeout=self._connect_timeout)
+            try:
+                checkpoint_metadata = donor._checkpoint_metadata(
+                    self._group_rank, timeout=self._timeout
+                )
+            finally:
+                donor.close()
+            if quorum.recover_src_replica_rank is None:
+                raise RuntimeError("the quorum assigns a heal without a recovery source rank")
+            with metrics.timer("tpuft_heal_recv_seconds", **self._metric_labels):
+                self._pending_state_dict = self._checkpoint_transport.recv_checkpoint(
+                    src_rank=quorum.recover_src_replica_rank,
+                    metadata=checkpoint_metadata,
+                    step=quorum.max_step,
+                    timeout=self._timeout,
+                    quorum_id=quorum.quorum_id,
+                )
+            # Manager accounting is restored at once; user state is applied
+            # from the train thread at the commit barrier.
+            self.load_state_dict(self._pending_state_dict["tpuft"])
+            self._step = quorum.max_step
+            self._heal_attempts = 0
+            self._heal_last_failed_donor = None
+            self._heal_failed_donors.clear()
+        except Exception as e:  # noqa: BLE001
+            if not isinstance(e, _DonorRecentlyFailed):
+                self._heal_attempts += 1
+                self._heal_last_failed_donor = src_addr
+                self._heal_failed_donors[src_addr] = True
+            logger.exception("got exception in recovery: %s", e)
+            self.report_error(e)
+            if self._heal_attempts >= self._heal_max_attempts:
+                raise HealExhaustedError(
+                    f"{self._heal_attempts} consecutive heal attempts failed "
+                    f"(last donor {src_addr}); escalating to the supervisor "
+                    f"(bound from ${HEAL_MAX_ATTEMPTS_ENV})"
+                ) from e
+
+    def _apply_pending_state_dict(self) -> None:
+        """Loads the fetched state into every registered state-dict fn,
+        under the write lock so no peer is served a half-applied state."""
+        if not self._healing:
+            raise RuntimeError("no heal in progress")
+        self.wait_quorum()
+        if self._pending_state_dict is None:
+            if self.errored() is None:
+                raise RuntimeError("a heal staged no state dict and reported no error")
+            return
+        if not self._load_state_dict_fns:
+            raise RuntimeError("no state dict is registered with the manager")
+        pending_user = cast(Dict[str, Any], self._pending_state_dict["user"])
+        self.disallow_state_dict_read()
+        try:
+            with metrics.timer("tpuft_heal_apply_seconds", **self._metric_labels):
+                for key, load_fn in self._load_state_dict_fns.items():
+                    load_fn(pending_user[key])
+        finally:
+            self.allow_state_dict_read()
+        self._pending_state_dict = None
+        metrics.set_gauge("tpuft_healing", 0, **self._metric_labels)
 
     # ------------------------------------------------------------------
     # commit
@@ -431,6 +615,8 @@ class Manager:
         complete and step the optimizer only when this returns True."""
         if err := self._pg.errored():
             self.report_error(err)
+        if self._healing:
+            self._apply_pending_state_dict()
         enough_replicas = self.num_participants() >= self._min_replica_size
         local_should_commit = enough_replicas and self._errored is None
         with metrics.timer("tpuft_commit_barrier_seconds", **self._metric_labels):
@@ -443,6 +629,7 @@ class Manager:
             self._replica_id, self._group_rank, self._step, should_commit,
             enough_replicas, self._errored,
         )
+        self._checkpoint_transport.disallow_checkpoint()
         if should_commit:
             self._step += 1
             self._batches_committed += self.num_participants()
@@ -465,6 +652,17 @@ class Manager:
     def load_state_dict(self, state_dict: Dict[str, int]) -> None:
         self._step = state_dict["step"]
         self._batches_committed = state_dict["batches_committed"]
+
+    def _manager_state_dict(self) -> Dict[str, Any]:
+        """What a donor serves: every registered user state and the
+        manager's accounting, read under the state-dict read lock."""
+        with self._state_dict_lock.r_lock(timeout=self._timeout):
+            if not self._user_state_dicts:
+                raise RuntimeError("no state dict is registered with the manager")
+            return {
+                "user": {key: fn() for key, fn in self._user_state_dicts.items()},
+                "tpuft": self.state_dict(),
+            }
 
     def state_dict(self) -> Dict[str, int]:
         """Manager accounting for user checkpoints: persist alongside model
@@ -500,4 +698,8 @@ class Manager:
         )
 
     def is_participating(self) -> bool:
-        return self._participating_replica_rank is not None
+        """False for a replica outside the max-step cohort and, with the
+        async quorum, for one that is healing this step."""
+        if self._participating_replica_rank is None:
+            return False
+        return not self._healing

@@ -32,6 +32,7 @@ __all__ = [
     "observe",
     "timer",
     "histogram_stats",
+    "counter_total",
 ]
 
 LabelItems = Tuple[Tuple[str, str], ...]
@@ -157,6 +158,18 @@ class Registry:
                 for (name, items), metric in sorted(self._metrics.items())
             ]
 
+    def counter_total(self, name: str, **label_filter: Any) -> float:
+        """Sum of counter ``name`` over the label sets that match."""
+        want = dict(_label_items(label_filter))
+        total = 0.0
+        for metric_name, items, kind, metric in self._items():
+            have = dict(items)
+            if metric_name == name and kind == "counter" and all(
+                have.get(k) == v for k, v in want.items()
+            ):
+                total += metric.value
+        return total
+
     def histogram_stats(self, name: str, **label_filter: Any) -> Dict[str, Any]:
         """Aggregated {"sum","count","mean"} over matching label sets."""
         want = dict(_label_items(label_filter))
@@ -206,3 +219,7 @@ def timer(name: str, **labels: Any) -> Generator[None, None, None]:
 
 def histogram_stats(name: str, **label_filter: Any) -> Dict[str, Any]:
     return REGISTRY.histogram_stats(name, **label_filter)
+
+
+def counter_total(name: str, **label_filter: Any) -> float:
+    return REGISTRY.counter_total(name, **label_filter)

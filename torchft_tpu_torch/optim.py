@@ -125,7 +125,8 @@ class Optimizer:
         loss, committed = step_fn(batch)
 
     The model's and the optimizer's state are registered with the manager
-    under ``register_key``, where a heal (a later slice) will load them.
+    under ``register_key``: a donor serves them and a healing replica loads
+    them (:meth:`_load_state_dict`).
     """
 
     def __init__(
@@ -138,14 +139,19 @@ class Optimizer:
         self.manager = manager
         self.optimizer = optimizer
         self.model = model
+        self._heal_count = 0
         manager.register_state_dict_fn(register_key, self._load_state_dict, self._state_dict)
 
     def _state_dict(self) -> Any:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
 
     def _load_state_dict(self, state: Any) -> None:
+        """Loads a healed state, whose tensors arrive on the host: the
+        model copies them into its parameters (their device and dtype), and
+        torch's optimizer casts each state tensor to its parameter's."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        self._heal_count += 1
 
     def begin_step(self, timeout: Optional[float] = None, shrink_only: bool = False) -> None:
         """Starts the (async) quorum for this step; call before the forward
